@@ -1,0 +1,146 @@
+"""Build, load and bind the CUDA kernels of ``fluidsolver_tpu_torch/csrc``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, at first use, into
+``fluidsolver_tpu_torch/_build/`` (named by a hash of the sources and the
+flags, so an edited source rebuilds), and bound with ``ctypes``. A missing
+compiler, a failed build or a card that is not Hopper raises.
+
+``launches`` counts kernel launches by kernel name; each wrapper adds one
+where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu")
+HEADERS = ("boxmg_device.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+launches: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # dtype, ncoef, op, N, M, out, stream
+    "fs_fused_rap": (_I, _I, _P, _I, _I, _P, _P),
+    # dtype, ncoef, op, b, x0, tr, ec, Nc, Mc, x_out, r_out, N, M, colors,
+    # n_colors, mode, stream
+    "fs_fused_smooth": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                        ctypes.c_uint, _I, _I, _P),
+    # dtype, ncoef0, op0, N, M, n_levels, buf, stream
+    "fs_tail_setup": (_I, _I, _P, _I, _I, _I, _P, _P),
+    # dtype, ncoef0, op0, buf, b, x_out, scratch, N, M, n_levels, n_pre,
+    # n_post, stream
+    "fs_tail_cycle": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libfs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the library if it is not built yet; returns its path. With
+    ``verbose``, ptxas reports registers, shared memory and spills."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    major, minor = torch.cuda.get_device_capability()
+    if (major, minor) != (9, 0):
+        raise RuntimeError(f"the kernels are built for sm_90a; this card is sm_{major}{minor}")
+    handle = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.float64:
+        return 1
+    raise TypeError(f"the CUDA kernels take float32 or float64, not {dtype}")
+
+
+def ptrs(tensors) -> ctypes.Array:
+    """A C array of device pointers (kept alive by the caller)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def check(tensors, device, dtype) -> None:
+    """Every tensor is contiguous, of ``dtype`` and on CUDA ``device``."""
+    for t in tensors:
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"kernel operand must be contiguous {dtype} on {device}; got "
+                f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
+
+
+def stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on_error(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launches[name] += 1
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """Dispatch: True runs the plain PyTorch twin, False launches the
+    kernel; a tensor on any device other than the CPU or a CUDA card
+    raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")

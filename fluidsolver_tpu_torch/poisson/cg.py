@@ -1,0 +1,118 @@
+"""Preconditioned conjugate gradients for the pressure Poisson solve: port
+of the plain path of ``fluidsolver_tpu.poisson.cg`` with the BoxMG V-cycle
+preconditioner.
+
+Convergence criterion: relative two-norm ||r||/||b|| < tol. For the
+singular all-Neumann system the preconditioned direction and the iterate
+are kept orthogonal to the constant nullspace by mean subtraction.
+
+The JAX package runs the loop as ``lax.while_loop``; here it is a Python
+loop whose test reads one device scalar per iteration (``core.sync.read``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from fluidsolver_tpu_torch.core import sync
+from fluidsolver_tpu_torch.poisson import boxmg
+from fluidsolver_tpu_torch.poisson.linsys import StencilOp, apply_op
+
+
+def _dot(a, b):
+    return torch.sum(a * b)
+
+
+def build_precond_levels(op: StencilOp, precond: str = "boxmg") -> list:
+    """The multigrid hierarchy for ``precond`` (only "boxmg" is ported)."""
+    if precond != "boxmg":
+        raise ValueError(f"preconditioner {precond!r} is not ported; use 'boxmg'")
+    return boxmg.build_hierarchy(op)
+
+
+def make_m_inv(op: StencilOp, precond: str = "boxmg", levels=None,
+               n_pre: int = 1, n_post: int = 1):
+    """``(M_inv, levels)``: one V-cycle ``r -> z`` and its hierarchy (built
+    here unless given)."""
+    if levels is None:
+        levels = build_precond_levels(op, precond)
+
+    def M_inv(r):
+        return boxmg.v_cycle(levels, r, n_pre=n_pre, n_post=n_post)
+
+    return M_inv, levels
+
+
+def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singular: bool,
+              precond: str = "boxmg", n_pre: int = 1, n_post: int = 1,
+              x0: Optional[torch.Tensor] = None, levels=None):
+    """Solve A x = b from zero (or the warm start ``x0``).
+
+    Returns (x, rel_residual, iterations): ``rel_residual`` a 0-d tensor,
+    ``iterations`` an int. The warm start is guarded (discarded if
+    ||b - A x0|| >= ||b||). The loop stops at ``tol``, at ``max_iter``, on a
+    stagnation window (no 0.01% improvement for STAG_WINDOW iterations),
+    or on a breakdown (non-positive pAp or a non-finite value), and returns
+    the best iterate seen."""
+    M_inv, levels = make_m_inv(op, precond, levels=levels, n_pre=n_pre, n_post=n_post)
+
+    def project(v):
+        return v - torch.mean(v) if singular else v
+
+    # f32 recurrences hit a rounding floor that can sit above tol: stop
+    # once the residual has stalled for STAG_WINDOW iterations
+    STAG_WINDOW = 25 if torch.finfo(b.dtype).bits <= 32 else 100
+
+    b = project(b)
+    bb = _dot(b, b)
+    b_norm = torch.sqrt(bb)
+    safe_b_norm = torch.where(b_norm > 0.0, b_norm, torch.ones_like(b_norm))
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x0 = project(x0.to(b.dtype))
+        r_ws = b - apply_op(op, x0)
+        good = _dot(r_ws, r_ws) < bb
+        x = torch.where(good, x0, torch.zeros_like(b))
+        r = torch.where(good, r_ws, b)
+    rel = torch.sqrt(_dot(r, r)) / safe_b_norm
+    z = project(M_inv(r))
+    p = z
+    rz = _dot(r, z)
+    best = rel
+    since = torch.zeros((), dtype=torch.int32, device=b.device)
+    x_best = x
+
+    k = 0
+    while k < max_iter:
+        if not sync.read((rel > tol) & (b_norm > 0.0) & (since < STAG_WINDOW)):
+            break
+        Ap = apply_op(op, p)
+        pAp = _dot(p, Ap)
+        alpha = rz / torch.where(pAp != 0.0, pAp, torch.ones_like(pAp))
+        x_new = x + alpha * p
+        r_new = r - alpha * Ap
+        z_new = project(M_inv(r_new))
+        rz_new = _dot(r_new, z_new)
+        beta = rz_new / torch.where(rz != 0.0, rz, torch.ones_like(rz))
+        p_new = z_new + beta * p
+        rel_new = torch.sqrt(_dot(r_new, r_new)) / safe_b_norm
+        # breakdown guard: reject the update, keep the last good iterate and
+        # trip the stagnation exit
+        ok = (pAp > 0.0) & torch.isfinite(rel_new) & torch.isfinite(rz_new)
+        x = torch.where(ok, x_new, x)
+        r = torch.where(ok, r_new, r)
+        z = torch.where(ok, z_new, z)
+        p = torch.where(ok, p_new, p)
+        rz = torch.where(ok, rz_new, rz)
+        rel = torch.where(ok, rel_new, rel)
+        improved = ok & (rel < best * 0.9999)
+        best = torch.minimum(best, rel)
+        since = torch.where(improved, torch.zeros_like(since),
+                            torch.where(ok, since + 1, torch.full_like(since, STAG_WINDOW)))
+        x_best = torch.where(rel <= best, x, x_best)
+        k += 1
+    return (project(x_best) if singular else x_best), best, k

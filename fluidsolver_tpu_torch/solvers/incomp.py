@@ -1,0 +1,193 @@
+"""Single-phase incompressible fractional-step solver: port of
+``fluidsolver_tpu.solvers.incomp``.
+
+One step: adaptive CFL dt, state rotation, then ``num_subiter``
+subiterations of { Crank-Nicolson midpoint -> momentum RHS -> velocity
+update -> BCs -> optional outflow correction -> divergence -> BoxMG-PCG
+pressure solve -> gauge shift -> projection }.
+
+Supported configuration: ``pressure_method="pcg"``, ``pressure_solver=
+"boxmg"``, no immersed boundary, no preconditioner dtype override; other
+settings raise. The step reads ``dt > 0`` and each PCG iteration's exit
+test back to the host (``core.sync``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from fluidsolver_tpu_torch.core import bc as bc_mod
+from fluidsolver_tpu_torch.core import fields, sync
+from fluidsolver_tpu_torch.core.grid import Grid
+from fluidsolver_tpu_torch.ops import momentum as mom
+from fluidsolver_tpu_torch.ops import stencil
+from fluidsolver_tpu_torch.poisson import cg, linsys
+from fluidsolver_tpu_torch.solvers.config import SolverConfig
+from fluidsolver_tpu_torch.solvers.state import (FlowState, clamp_dt_to_end,
+                                                  end_tolerance, save_old)
+
+
+def _check_supported(cfg: SolverConfig) -> None:
+    if cfg.pressure_method != "pcg" or cfg.pressure_solver != "boxmg":
+        raise ValueError("the port solves the pressure with pressure_method='pcg', "
+                         f"pressure_solver='boxmg' only (got {cfg.pressure_method!r}, "
+                         f"{cfg.pressure_solver!r})")
+    if cfg.pressure_precond_dtype is not None:
+        raise ValueError("pressure_precond_dtype is not ported")
+    if cfg.ib_mode is not None:
+        raise ValueError("immersed boundaries are not ported")
+
+
+def _periodic_axes(cfg: SolverConfig) -> tuple[bool, bool]:
+    b = cfg.bcs
+    per_x = isinstance(b.left, bc_mod.Periodic) and isinstance(b.right, bc_mod.Periodic)
+    per_y = isinstance(b.bottom, bc_mod.Periodic) and isinstance(b.top, bc_mod.Periodic)
+    return per_x, per_y
+
+
+def pressure_solve(state: FlowState, div, dt, grid: Grid, cfg: SolverConfig,
+                   x0=None, levels=None, tol: Optional[float] = None):
+    """Assemble + PCG-solve the pressure Poisson system; returns the gauge-
+    shifted increment delta_p, the relative residual and the iterations."""
+    _check_supported(cfg)
+    if tol is None:
+        tol = cfg.pressure_tol
+    op = linsys.assemble_pressure_operator(state.rho_u, state.rho_v, grid.dx, grid.dy,
+                                           cfg.pressure_pin)
+    per_x, per_y = _periodic_axes(cfg)
+    rhs = linsys.build_pressure_rhs(div, grid.dx, grid.dy, dt, cfg.pressure_pin,
+                                    periodic_x=per_x, periodic_y=per_y)
+    delta_p, rel, iters = cg.solve_pcg(
+        op, rhs, tol=tol, max_iter=cfg.pressure_max_iter,
+        singular=cfg.pressure_pin is None, precond=cfg.pressure_solver,
+        n_pre=cfg.mg_pre, n_post=cfg.mg_post, x0=x0, levels=levels,
+    )
+    return stencil.shift_pressure_to_zero(delta_p, grid.dx, grid.dy), rel, iters
+
+
+def build_step_levels(rho_u, rho_v, grid: Grid, cfg: SolverConfig) -> list:
+    """The BoxMG hierarchy of the operator assembled from these densities."""
+    _check_supported(cfg)
+    op = linsys.assemble_pressure_operator(rho_u, rho_v, grid.dx, grid.dy, cfg.pressure_pin)
+    return cg.build_precond_levels(op, cfg.pressure_solver)
+
+
+def project_velocity(U, V, delta_p, rho_u, rho_v, dt, dx: float, dy: float):
+    """U -= dt/rho * grad(delta_p) on interior faces."""
+    dpdx = (delta_p[1:, 1:-1] - delta_p[:-1, 1:-1]) / dx
+    U = fields.add_interior(U, -dpdx * dt / rho_u[1:-1, 1:-1])
+    dpdy = (delta_p[1:-1, 1:] - delta_p[1:-1, :-1]) / dy
+    V = fields.add_interior(V, -dpdy * dt / rho_v[1:-1, 1:-1])
+    return U, V
+
+
+def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device) -> Callable:
+    """Build ``step(state, t_end) -> state`` for states of ``dtype`` on
+    ``device``.
+
+    Single-phase density is constant (``cfg.rho_gas``), so the BoxMG
+    hierarchy is built here once, on ``device``, from constant densities:
+    on a GPU this is where the setup kernels run. The PCG operator itself is
+    assembled from ``state.rho_u``/``rho_v`` at every solve."""
+    _check_supported(cfg)
+    device = torch.device(device)
+    rho_eps = mom.calc_rho_eps(cfg.rho_gas, cfg.rho_liquid)
+    levels = build_step_levels(fields.full_u(grid, cfg.rho_gas, dtype, device),
+                               fields.full_v(grid, cfg.rho_gas, dtype, device), grid, cfg)
+
+    def subiter(state: FlowState, dp_prev, dt, k: int):
+        U = stencil.mid_time(state.U, state.U_old)
+        V = stencil.mid_time(state.V, state.V_old)
+        dmomU, dmomV = mom.calc_dmomdt(
+            U, V, state.rho_u_old, state.rho_v_old, state.visc, state.p,
+            state.p_jump_u, state.p_jump_v, grid.dx, grid.dy, rho_eps,
+        )
+        if cfg.gravity != (0.0, 0.0):
+            gx, gy = cfg.gravity
+            dmomU = fields.add_interior(dmomU, gx * state.rho_u[1:-1, 1:-1])
+            dmomV = fields.add_interior(dmomV, gy * state.rho_v[1:-1, 1:-1])
+        U, V = mom.update_velocity(
+            state.U_old, state.V_old, state.rho_u_old, state.rho_v_old,
+            state.rho_u, state.rho_v, dmomU, dmomV, dt, U, V,
+        )
+        U, V = bc_mod.apply_velocity_bcs(U, V, grid, cfg.bcs, state.t)
+
+        if cfg.outflow_correction:
+            _, _, mass_err = mom.inflow_outflow(U, state.rho_u)
+            U = mom.correct_outflow(U, state.rho_u, mass_err)
+
+        if cfg.flow_forcing is not None:
+            # drive the periodic channel to a fixed total mass flow
+            ncols = U.shape[1]
+            inflow = torch.sum(state.rho_u[0, :] * U[0, :] * grid.dy)
+            outflow = torch.sum(state.rho_u[-1, :] * U[-1, :] * grid.dy)
+            U = U.clone()
+            U[0, :] += (cfg.flow_forcing - inflow) / (state.rho_u[0, :] * grid.dy * ncols)
+            U[-1, :] += (cfg.flow_forcing - outflow) / (state.rho_u[-1, :] * grid.dy * ncols)
+
+        div = stencil.divergence(U, V, grid.dx, grid.dy)
+        tol = cfg.pressure_tol
+        if cfg.pressure_tol_intermediate is not None and k != cfg.num_subiter - 1:
+            tol = cfg.pressure_tol_intermediate
+        delta_p, rel, iters = pressure_solve(
+            state, div, dt, grid, cfg,
+            x0=dp_prev if cfg.pressure_warm_start else None, levels=levels, tol=tol,
+        )
+        p = state.p + delta_p
+        U, V = project_velocity(U, V, delta_p, state.rho_u, state.rho_v, dt, grid.dx, grid.dy)
+        return dataclasses.replace(state, U=U, V=V, p=p, p_res=rel,
+                                   p_iter=state.p_iter + iters), delta_p
+
+    def step(state: FlowState, t_end: float) -> FlowState:
+        if state.U.dtype != dtype or state.U.device != device:
+            raise ValueError(f"step built for {dtype} on {device}, state is "
+                             f"{state.U.dtype} on {state.U.device}")
+        dt = mom.adjust_dt(
+            state.U, state.V, state.rho_u, state.rho_v, state.visc,
+            grid.dx, grid.dy, cfg.rho_gas, cfg.rho_liquid, cfg.sigma,
+            cfg.cfl_max, cfg.dt_max,
+        )
+        dt = clamp_dt_to_end(dt, state.t, t_end)
+        state = save_old(state)
+        state = dataclasses.replace(state, p_iter=torch.zeros_like(state.p_iter))
+        # dt == 0 (t_end reached) skips the physics: the Poisson RHS divides
+        # by dt. Each subiteration warm-starts from the previous increment.
+        if sync.read(dt > 0.0):
+            dp = torch.zeros_like(state.p)
+            for k in range(cfg.num_subiter):
+                state, dp = subiter(state, dp, dt, k)
+        return dataclasses.replace(state, t=state.t + dt, dt=dt)
+
+    step.levels = levels
+    return step
+
+
+def run(state: FlowState, t_end: float, grid: Grid, cfg: SolverConfig,
+        callback=None, max_steps: int = 1_000_000) -> FlowState:
+    """Host time loop: while t < t_end."""
+    step = make_step(grid, cfg, state.U.dtype, state.U.device)
+    tol = end_tolerance(state.t.dtype, t_end)
+    for _ in range(max_steps):
+        if sync.read(state.t) >= t_end - tol:
+            break
+        state = step(state, t_end)
+        if callback is not None:
+            callback(state)
+    return state
+
+
+def make_fixed_runner(grid: Grid, cfg: SolverConfig, n_steps: int, dtype: torch.dtype,
+                      device) -> Callable:
+    """Fixed-step runner (the JAX package's ``make_scan_runner``): ``n_steps``
+    steps; steps past ``t_end`` clamp to dt = 0 no-ops."""
+    step = make_step(grid, cfg, dtype, device)
+
+    def run_n(state: FlowState, t_end: float) -> FlowState:
+        for _ in range(n_steps):
+            state = step(state, t_end)
+        return state
+
+    return run_n
