@@ -5,18 +5,31 @@
 Phases (each prints its own lines; any failure exits non-zero before the
 result line):
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. the kernel build (nvcc, sm_90a), with its time;
+  2. the kernel build (one nvcc per source, sm_90a), with its time;
   3. each of the four BoxMG kernels against its plain PyTorch twin on the
      card, in f64 at the CPU tests' tolerances and in f32 at a relative
-     (to max |twin|) tolerance of 1e-5, at the level shapes of
-     lid_driven(n=1024) and of an odd 1023 x 771 grid; kernel and twin
-     times by CUDA events at the main path's shapes;
-  4. lid_driven(n=256), f64, pressure_tol=1e-11, 3 steps: the GPU
-     (kernels) against the CPU (twins);
-  5. lid_driven(n=1024), f32, 20 steps through the case's step: ms/step,
-     PCG iterations and residual per step, max |div|, host syncs per step,
-     the kernel launch counts of that run, and the kernels seen by
-     torch.profiler over make_step plus one step.
+     (to max |twin|) tolerance of 1e-5, at the level shapes of a 1026^2
+     and of an odd 1023 x 771 box; kernel and twin times by CUDA events at
+     the main path's shapes;
+  3b. the three VOF kernels (elvira, curvature, overlap) against their twins
+     on the bench drop's vf (1026^2 box) and on an odd 1023 x 771 box with
+     25 drops: f64 at the CPU tests' tolerances, f32 at the relative 1e-5;
+     times at the main path's shape; a lane budget below the active set
+     must give an infinite volume error; the VOF stage, queued behind a
+     device sleep, must return while the stream is still busy (no host read);
+  4. lid_driven(n=256), f64, pressure_tol=1e-11, 3 steps: the GPU (kernels)
+     against the CPU (twins);
+  4b. the golden two-phase drop (64^2, 15 steps, f64, tol 1e-10): GPU
+     against CPU and both against tests/goldens/two_phase_drop.npz;
+  5. lid_driven(n=1024), f32, 20 steps: ms/step, PCG iterations, max |div|,
+     host syncs per step, launch counts, and the kernels seen by
+     torch.profiler over make_step plus one step;
+  6. the two-phase bench configuration (a drop in an inflow channel, 1024^2,
+     1000:1, 5 subiterations, refresh "step", f32), 20 steps: ms/step,
+     p_iter, host syncs, VOF volume error, vf bounds and volume drift,
+     max |div|, the launch counts of all seven kernels, and a profiler split
+     of 3 steps (kernels, rest of the VOF stage, pressure solve, other work,
+     idle share).
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -25,10 +38,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,11 +57,20 @@ REPLACES = {
                    "fluidsolver_tpu/poisson/pallas_tail.py:403"),
     "tail_cycle": ("fluidsolver_tpu_torch/csrc/tail.cu",
                    "fluidsolver_tpu/poisson/pallas_tail.py:455"),
+    "elvira": ("fluidsolver_tpu_torch/csrc/elvira.cu",
+               "fluidsolver_tpu/vof/pallas_elvira.py:51"),
+    "curvature": ("fluidsolver_tpu_torch/csrc/curvature.cu",
+                  "fluidsolver_tpu/vof/pallas_curvature.py:92"),
+    "overlap": ("fluidsolver_tpu_torch/csrc/overlap.cu",
+                "fluidsolver_tpu/vof/pallas_advect.py:157"),
 }
 # the names the kernels carry in a profiler trace
-TRACE_NAMES = {"fused_rap": "fused_rap_kernel", "fused_smooth": "fused_smooth_kernel",
-               "tail_setup": "tail_setup_kernel", "tail_cycle": "tail_cycle_kernel"}
+TRACE_NAMES = {k: k + "_kernel" for k in REPLACES}
 F32_RTOL = 1e-5
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and
+# non-tensor-core FLOP/s by dtype
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 class PhaseFailure(Exception):
@@ -60,6 +84,18 @@ def log(msg: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseFailure(msg)
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(least time in ms for these bytes and operations at the card's
+    peaks, "bytes" or "operations")."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 # ---- inputs ----------------------------------------------------------------
@@ -84,6 +120,63 @@ def fields_of(obj) -> list:
     return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
 
 
+def bench_case(n: int = 1024):
+    """bench.py's two-phase configuration with the port's SolverConfig: a
+    drop (r = 0.1 at (0.3, 0.5)) in a unit channel with a uniform 0.5
+    inflow, 1000:1 density, sigma = 1/200, 5 subiterations, PCG + BoxMG
+    with a 3e-4 intermediate tolerance and one hierarchy per step."""
+    from fluidsolver_tpu_torch.core import bc
+    from fluidsolver_tpu_torch.core.grid import make_grid
+    from fluidsolver_tpu_torch.solvers.config import SolverConfig
+
+    g = make_grid(0.0, 1.0, n, 0.0, 1.0, n)
+    cfg = SolverConfig(
+        rho_gas=1.0, rho_liquid=1e3, visc_gas=1e-6, visc_liquid=1e-3,
+        sigma=1.0 / 200.0, cfl_max=0.9, dt_max=1e-2, num_subiter=5,
+        pressure_tol=1e-6, pressure_max_iter=50,
+        bcs=bc.FlowBCs(bc.Dirichlet(u=0.5, v=0.0), bc.Neumann(),
+                       bc.Dirichlet(u=0.0, v=0.0), bc.Dirichlet(u=0.0, v=0.0)),
+        outflow_correction=True, pressure_tol_intermediate=3e-4,
+        pressure_precond_refresh="step",
+    )
+    return g, cfg
+
+
+def bench_vf0(g) -> np.ndarray:
+    from fluidsolver_tpu_torch.vof.init import liquid_fraction_from_indicator
+
+    return liquid_fraction_from_indicator(lambda x, y: (x - 0.3) ** 2 + (y - 0.5) ** 2 <= 0.1**2, g)
+
+
+def drops_vf(n: int, m: int, n_drops: int, seed: int):
+    """An (n-2) x (m-2) grid with random drops: vf = clip(1/2 - phi/h) of
+    the signed distance phi to the nearest drop (a mixed band about one
+    cell wide)."""
+    from fluidsolver_tpu_torch.core.grid import make_grid
+
+    g = make_grid(0.0, 1.0, n - 2, 0.0, (m - 2) / (n - 2), m - 2)
+    rng = np.random.default_rng(seed)
+    X, Y = np.meshgrid(g.xm, g.ym, indexing="ij")
+    phi = np.full(X.shape, np.inf)
+    for _ in range(n_drops):
+        cx, cy = rng.uniform(0.08, 0.92), rng.uniform(0.08, g.y_max - 0.08)
+        r = rng.uniform(0.015, 0.04)
+        phi = np.minimum(phi, np.hypot(X - cx, Y - cy) - r)
+    return g, np.clip(0.5 - phi / g.dx, 0.0, 1.0)
+
+
+def swirl_velocity(g, dtype, device):
+    """A solenoidal swirl U = sin(pi x) cos(pi y), V = -cos(pi x) sin(pi y)
+    on the staggered faces, and its cell-centered interpolation."""
+    from fluidsolver_tpu_torch.ops import stencil
+
+    Xu, Yu = np.meshgrid(g.x, g.ym, indexing="ij")
+    Xv, Yv = np.meshgrid(g.xm, g.y, indexing="ij")
+    U = torch.as_tensor(np.sin(np.pi * Xu) * np.cos(np.pi * Yu), dtype=dtype, device=device)
+    V = torch.as_tensor(-np.cos(np.pi * Xv) * np.sin(np.pi * Yv), dtype=dtype, device=device)
+    return U, V, stencil.interp_u_center(U), stencil.interp_v_center(V)
+
+
 # ---- comparisons -------------------------------------------------------------
 class Errors:
     """Max abs error per kernel over the f32 comparisons at the main path's
@@ -92,20 +185,21 @@ class Errors:
     def __init__(self):
         self.max_abs = {}
 
-    def compare(self, name, got, want, dtype, rtol, atol, main_path, what):
-        got, want = list(got), list(want)
+    def compare(self, name, got, want, dtype, rtol, atol, main_path, what, mask=None):
         worst = 0.0
-        for g, w in zip(got, want):
+        for g, w in zip(list(got), list(want)):
             diff = (g - w).abs()
+            if mask is not None:
+                diff = torch.where(mask, diff, torch.zeros_like(diff))
             if dtype == torch.float64:
                 ok = bool((diff <= atol + rtol * w.abs()).all())
-                bound = "atol %g rtol %g" % (atol, rtol)
+                bound_txt = "atol %g rtol %g" % (atol, rtol)
             else:
                 scale = float(w.abs().max())
                 ok = float(diff.max()) <= F32_RTOL * max(scale, 1e-30)
-                bound = "%g x max|twin| = %g" % (F32_RTOL, F32_RTOL * scale)
+                bound_txt = "%g x max|twin| = %g" % (F32_RTOL, F32_RTOL * scale)
             worst = max(worst, float(diff.max()))
-            require(ok, f"{name} {what}: max|kernel - twin| = {float(diff.max()):.3e} exceeds {bound}")
+            require(ok, f"{name} {what}: max|kernel - twin| = {float(diff.max()):.3e} exceeds {bound_txt}")
         if main_path and dtype == torch.float32:
             self.max_abs[name] = max(self.max_abs.get(name, 0.0), worst)
         return worst
@@ -125,12 +219,14 @@ def time_ms(fn, reps: int) -> float:
 
 # ---- phase 3 ---------------------------------------------------------------
 def kernel_phase(device, errors: Errors) -> dict:
+    """Returns name -> (kernel ms, twin ms, bound ms, bound by)."""
     from fluidsolver_tpu_torch.poisson import boxmg, cuda_rap, cuda_tail, cuda_vcycle
 
     times = {}
     for dtype, shape, main in ((torch.float64, (1026, 1026), True), (torch.float32, (1026, 1026), True),
                                (torch.float64, (1023, 771), False), (torch.float32, (1023, 771), False)):
         tag = f"{str(dtype)[6:]} {shape[0]}x{shape[1]}"
+        s = itemsize(dtype)
         op = random_operator(*shape, seed=13, dtype=dtype, device=device)
         level = 0
         while True:
@@ -150,10 +246,18 @@ def kernel_phase(device, errors: Errors) -> dict:
                 errors.compare("tail_cycle", [xk], [xt], dtype, 1e-12, 1e-12 * float(xt.abs().max()), main,
                                f"{tag} level {lshape} V(2,2)")
                 if main and dtype == torch.float32:
+                    shapes = cuda_tail.level_shapes(lshape, n_rem)
+                    pts = [a * c for a, c in shapes]
+                    # setup: 9 planes in, the pack out; ~540 flops per coarse point
+                    bnd = bound(s * (9 * pts[0] + pk.buf.numel()), 540 * sum(pts[1:]), dtype)
                     times["tail_setup"] = (time_ms(lambda: cuda_tail.build_tail_pack_cuda(op, n_rem), 20),
-                                           time_ms(lambda: cuda_tail.build_tail_pack_twin(op, n_rem), 3))
+                                           time_ms(lambda: cuda_tail.build_tail_pack_twin(op, n_rem), 3), *bnd)
+                    # V(2,2): pack + b in, x out; ~100 flops per point per level,
+                    # plus 32 sweeps of ~36 flops per point on the coarsest
+                    bnd = bound(s * (pk.buf.numel() + 9 * pts[0] + 2 * pts[0]),
+                                100 * sum(pts) + 32 * 36 * pts[-1], dtype)
                     times["tail_cycle"] = (time_ms(lambda: cuda_tail.tail_cycle_cuda(pt, b, 2, 2), 50),
-                                           time_ms(lambda: cuda_tail.tail_cycle_twin(pt, b, 2, 2), 3))
+                                           time_ms(lambda: cuda_tail.tail_cycle_twin(pt, b, 2, 2), 3), *bnd)
                 log(f"  {tag}: tail at {lshape}, {n_rem} levels: setup and cycle agree")
                 break
             trk, ck = cuda_rap.fused_rap_cuda(op)
@@ -179,13 +283,193 @@ def kernel_phase(device, errors: Errors) -> dict:
                                f"{tag} level {lshape} variant {vname}")
             if main and dtype == torch.float32 and level == 0:
                 kw = variants["restrict"]
+                nm, ncm = lshape[0] * lshape[1], trt.pW.numel()
+                ncoef = len(boxmg.coefs(op))
+                # ncoef planes in, 8 weight + 9 coefficient coarse planes out;
+                # ~540 flops per coarse point
+                bnd = bound(s * (ncoef * nm + 17 * ncm), 540 * ncm, dtype)
                 times["fused_rap"] = (time_ms(lambda: cuda_rap.fused_rap_cuda(op), 20),
-                                      time_ms(lambda: cuda_rap.fused_rap_twin(op), 3))
+                                      time_ms(lambda: cuda_rap.fused_rap_twin(op), 3), *bnd)
+                # restrict variant: op + b + 8 coarse weights in, x + coarse r
+                # out; 4 half-steps, a residual and a restriction, ~55 flops/point
+                bnd = bound(s * ((ncoef + 2) * nm + 9 * ncm), 55 * nm, dtype)
                 times["fused_smooth"] = (time_ms(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), 50),
-                                         time_ms(lambda: cuda_vcycle.fused_smooth_twin(op, b, **kw), 10))
+                                         time_ms(lambda: cuda_vcycle.fused_smooth_twin(op, b, **kw), 10),
+                                         *bnd)
             log(f"  {tag}: level {lshape}: fused_rap and fused_smooth (4 variants) agree")
             op = ct
             level += 1
+    return times
+
+
+# ---- phase 3b --------------------------------------------------------------
+def fit_error(vf, nx, ny, d, dx, dy):
+    """ELVIRA's objective of the planes (nx, ny, d) on the interior, in f64."""
+    from fluidsolver_tpu_torch.vof import plic
+
+    vf, nx, ny, d = (t.double() for t in (vf, nx, ny, d))
+    c = [plic.shift(t, 0, 0) for t in (nx, ny, d)]
+    err = torch.zeros_like(c[0])
+    for di, dj in plic.NEIGHBOR_OFFSETS:
+        pred = plic.area_fraction(c[0], c[1], c[2] - (c[0] * di * dx + c[1] * dj * dy), dx, dy)
+        err = err + (pred - plic.shift(vf, di, dj)) ** 2
+    return err
+
+
+def neighbourhood_cells(mask) -> int:
+    """Cells in the union of the 3x3 neighbourhoods of ``mask``'s cells."""
+    grown = torch.nn.functional.max_pool2d(mask[None, None].float(), 3, 1, 1)[0, 0]
+    return int(grown.sum())
+
+
+def overlap_flops(args, n_active: int) -> int:
+    """Floating-point operations of csrc/overlap.cu's clip loop on these
+    lanes' polygons, counted where the result needs them: per active lane
+    the start polygon's shoelace (4 per vertex + 1) and the 9-term sum; per
+    neighbour above the cutoff, 4 per vertex entering each of the 5 clips
+    (the side test), 8 per crossing (a difference, a division and two
+    interpolations of 3) and the final shoelace (4 per vertex + 1). The
+    vertex and crossing counts come from the plain clip chain."""
+    from fluidsolver_tpu_torch.constants import vf_cutoffs
+    from fluidsolver_tpu_torch.vof import advect, cuda_advect
+    from fluidsolver_tpu_torch.vof.plic import NEIGHBOR_OFFSETS
+
+    slots_x, slots_y, vf, rec, iig, jjg, dx, dy = args
+    vx, vy, n = advect.pad_slots(slots_x, slots_y)
+    gathered = cuda_advect.gather_neighbourhood(vf, rec, iig, jjg)
+    vf_nb, mixed, pnx, pny, pd = gathered[0], gathered[1] > 0.5, gathered[2], gathered[3], gathered[4]
+    lo, _ = vf_cutoffs(vf.dtype)
+    need = (vf_nb > lo) & (torch.arange(vf_nb.shape[1], device=vf.device) < n_active)
+    offs = torch.tensor(NEIGHBOR_OFFSETS, dtype=vf.dtype, device=vf.device)
+    x_lo = (offs[:, 0] * dx)[:, None].expand_as(vf_nb)
+    y_lo = (offs[:, 1] * dy)[:, None].expand_as(vf_nb)
+    ones, zeros = torch.ones_like(x_lo), torch.zeros_like(x_lo)
+    planes = ((-ones, zeros, -x_lo), (ones, zeros, x_lo + dx), (zeros, -ones, -y_lo), (zeros, ones, y_lo + dy),
+              (torch.where(mixed, pnx, zeros), torch.where(mixed, pny, zeros),
+               torch.where(mixed, pd + pnx * x_lo + pny * y_lo, ones)))
+    vx, vy, n = vx.expand(9, *vx.shape), vy.expand(9, *vy.shape), n.expand(9, *n.shape)
+    flops = 0
+    for a, b, c in planes:
+        nn = n.clamp(max=advect.K)
+        d = a[..., None] * vx + b[..., None] * vy - c[..., None]
+        inside = ((d <= 0.0) & (torch.arange(advect.K, device=vf.device) < nn[..., None])).sum(-1)
+        vx, vy, n = advect.clip_halfplane(vx, vy, n, a, b, c)
+        flops += int(torch.where(need, 4 * nn + 8 * (n - inside), 0).sum())
+    flops += int(torch.where(need, 4 * n.clamp(max=advect.K) + 1, 0).sum())
+    return flops + n_active * (4 * 8 + 1 + 9)
+
+
+def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> dict:
+    """Returns name -> (kernel ms, twin ms, bound ms, bound by)."""
+    from fluidsolver_tpu_torch.vof import advect, cuda_advect, cuda_curvature, cuda_elvira, curvature, plic
+
+    g_odd, vf_odd = drops_vf(1023, 771, 25, seed=5)
+    inputs = (("bench drop 1026x1026", g_bench, vf_bench, True),
+              ("25 drops 1023x771", g_odd, vf_odd, False))
+    times = {}
+    for dtype in (torch.float64, torch.float32):
+        s = itemsize(dtype)
+        for name, g, vf_np, main in inputs:
+            tag = f"{str(dtype)[6:]} {name}"
+            dx, dy = g.dx, g.dy
+            vf = torch.as_tensor(vf_np, dtype=dtype, device=device)
+
+            # elvira: valid exactly; planes to rounding on every cell of the
+            # bench drop; on the drops box a cell may differ only at a
+            # near-tie, where both winners fit the neighbourhood equally well
+            rk = cuda_elvira.elvira_cuda(vf, dx, dy)
+            rt = cuda_elvira.elvira_twin(vf, dx, dy)
+            require(torch.equal(rk.valid, rt.valid), f"elvira {tag}: valid masks differ")
+            tol = (lambda w: 1e-12 + 1e-10 * w.abs()) if dtype == torch.float64 else \
+                (lambda w: F32_RTOL * max(float(w.abs().max()), 1e-30))
+            off = torch.zeros_like(rt.valid)
+            for a, b in ((rk.nx, rt.nx), (rk.ny, rt.ny), (rk.d, rt.d)):
+                off |= (a - b).abs() > tol(b)
+            n_off = int(off.sum())
+            require(not (main and n_off), f"elvira {tag}: {n_off} cells differ from the twin")
+            if n_off:
+                ek = fit_error(vf, rk.nx, rk.ny, rk.d, dx, dy)
+                et = fit_error(vf, rt.nx, rt.ny, rt.d, dx, dy)
+                o = off[1:-1, 1:-1]
+                gap = float(((ek - et).abs()[o] / (et[o].abs() + 1e-12)).max())
+                require(gap <= (1e-6 if dtype == torch.float64 else 1e-5),
+                        f"elvira {tag}: {n_off} cells differ and are not near-ties (fit gap {gap:.3e})")
+            errors.compare("elvira", [rk.nx, rk.ny, rk.d], [rt.nx, rt.ny, rt.d], dtype, 1e-10, 1e-12,
+                           main, tag, mask=~off)
+            n_mixed = int(rt.valid.sum())
+
+            # curvature on the twin's planes
+            ck = cuda_curvature.curvature_vm_cuda(rt.nx, rt.ny, rt.d, rt.valid, dx, dy)
+            ct = cuda_curvature.curvature_vm_twin(rt.nx, rt.ny, rt.d, rt.valid, dx, dy)
+            errors.compare("curvature", [ck], [ct], dtype, 1e-10, 1e-12 * float(ct.abs().max()), main, tag)
+
+            # overlap on the lanes of one advection through a swirl at CFL 0.5
+            U, V, Ui, Vi = swirl_velocity(g, dtype, device)
+            dt = torch.tensor(0.5 * dx, dtype=dtype, device=device)
+            m = advect.default_max_active(g.nx, g.ny)
+            lanes = advect.prepare_lanes(vf, U, V, Ui, Vi, g, dt, m)
+            args = (lanes.slots_x, lanes.slots_y, vf, rt, lanes.iig, lanes.jjg, dx, dy)
+            ok_, ak = cuda_advect.overlap_cuda(*args)
+            ot, at = cuda_advect.overlap_twin(*args)
+            errors.compare("overlap", [ok_], [ot], dtype, 0.0, 1e-13, main, tag + " overlap")
+            errors.compare("overlap", [ak], [at], dtype, 1e-10, 1e-15, main, tag + " start area")
+            n_active = int(lanes.n_active)
+            log(f"  {tag}: {n_mixed} mixed cells, {n_active} active of {m} lanes: "
+                f"elvira ({n_off} near-tie cells), curvature and overlap agree")
+
+            if main and dtype == torch.float32:
+                nm = vf.numel()
+                times["elvira"] = (time_ms(lambda: cuda_elvira.elvira_cuda(vf, dx, dy), 50),
+                                   time_ms(lambda: cuda_elvira.elvira_twin(vf, dx, dy), 3),
+                                   # vf in; nx, ny, d and a byte plane out;
+                                   # ~4000 flops per mixed cell
+                                   *bound((2 * s + 1) * nm + 2 * s * nm, 4000 * n_mixed, dtype))
+                planes = (rt.nx, rt.ny, rt.d, rt.valid)
+                times["curvature"] = (
+                    time_ms(lambda: cuda_curvature.curvature_vm_cuda(*planes, dx, dy), 50),
+                    time_ms(lambda: cuda_curvature.curvature_vm_twin(*planes, dx, dy), 3),
+                    # valid bytes in, curvature out, 3 planes over the valid
+                    # cells' neighbourhoods; ~1000 flops per valid cell
+                    *bound((1 + s) * nm + 3 * s * neighbourhood_cells(rt.valid), 1000 * n_mixed, dtype))
+                act = ~lanes.is_fill
+                lane_cells = torch.zeros_like(rt.valid)
+                lane_cells[1 + lanes.iig[act], 1 + lanes.jjg[act]] = True
+                times["overlap"] = (
+                    time_ms(lambda: cuda_advect.overlap_cuda(*args), 50),
+                    time_ms(lambda: cuda_advect.overlap_twin(*args), 3),
+                    # per active lane 16 slot values and 2 indices in, 2
+                    # values out; 5 fields over the active lanes'
+                    # neighbourhoods in; the clip loop's operations
+                    *bound((18 * s + 16) * n_active + (4 * s + 1) * neighbourhood_cells(lane_cells),
+                           overlap_flops(args, n_active), dtype))
+
+    # a lane budget below the active set: the advection reports inf
+    vf = torch.as_tensor(vf_odd, dtype=torch.float32, device=device)
+    U, V, Ui, Vi = swirl_velocity(g_odd, torch.float32, device)
+    dt = torch.tensor(0.5 * g_odd.dx, dtype=torch.float32, device=device)
+    rec = cuda_elvira.elvira_cuda(vf, g_odd.dx, g_odd.dy)
+    m = advect.default_max_active(g_odd.nx, g_odd.ny)
+    n_active = int(advect.prepare_lanes(vf, U, V, Ui, Vi, g_odd, dt, m).n_active)
+    _, err = advect.advect(vf, rec, U, V, Ui, Vi, g_odd, dt)
+    _, err_over = advect.advect(vf, rec, U, V, Ui, Vi, g_odd, dt, max_active=n_active // 2)
+    log(f"  overflow case (f32, 25 drops, {n_active} active cells): budget {m} gives vol_err "
+        f"{float(err):.3e}; budget {n_active // 2} gives {float(err_over)}")
+    require(math.isfinite(float(err)) and float(err) < 1e-4, "the default budget must hold the active set")
+    require(math.isinf(float(err_over)), "a lane budget below the active set must give vol_err = inf")
+
+    # the VOF stage reads nothing back to the host: queued behind ~0.1 s of
+    # device sleep, it returns while the stream is still busy
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    rec = plic.elvira(vf, g_odd.dx, g_odd.dy)
+    advect.advect(vf, rec, U, V, Ui, Vi, g_odd, dt)
+    curvature.curvature_quad_volume_matching(vf, rec, g_odd)
+    plic.interface_length(rec, g_odd.dx, g_odd.dy)
+    pending = not torch.cuda.current_stream(device).query()
+    torch.cuda.synchronize()
+    log(f"  VOF stage (elvira, advect, curvature, interface length) queued behind a device sleep: "
+        f"stream still busy on return: {pending}")
+    require(pending, "the VOF stage drained the stream (a host read)")
     return times
 
 
@@ -214,8 +498,58 @@ def cross_check_phase(device) -> None:
     require(all(abs(a - b) <= 1 for a, b in zip(ig, ic)), "p_iter differs by more than 1")
 
 
+# ---- phase 4b --------------------------------------------------------------
+def golden_drop():
+    """The golden two-phase drop of tests/golden_cases.py: 64^2, 1000:1,
+    sigma 0.02, gravity, all-Neumann walls, pressure pinned right, tol 1e-10,
+    15 steps of dt_max = 2.5e-3."""
+    from fluidsolver_tpu_torch.core import bc
+    from fluidsolver_tpu_torch.core.grid import make_grid
+    from fluidsolver_tpu_torch.solvers.config import SolverConfig
+    from fluidsolver_tpu_torch.vof.init import liquid_fraction_from_indicator
+
+    g = make_grid(0.0, 1.0, 64, 0.0, 1.0, 64)
+    cfg = SolverConfig(
+        rho_gas=1.0, rho_liquid=1e3, visc_gas=1e-3, visc_liquid=1e-2,
+        sigma=0.02, cfl_max=0.5, dt_max=2.5e-3, num_subiter=2,
+        pressure_tol=1e-10, pressure_max_iter=200, pressure_pin="right",
+        bcs=bc.FlowBCs(bc.Neumann(), bc.Neumann(), bc.Neumann(), bc.Neumann()),
+        gravity=(0.0, -1.0),
+    )
+    vf0 = liquid_fraction_from_indicator(lambda x, y: (x - 0.5) ** 2 + (y - 0.65) ** 2 <= 0.2**2, g)
+    return g, cfg, vf0, 15 * 2.5e-3
+
+
+def two_phase_cross_check_phase(device) -> None:
+    from fluidsolver_tpu_torch.solvers import twophase
+
+    g, cfg, vf0, t_end = golden_drop()
+    gold = dict(np.load(Path(__file__).resolve().parent / "tests" / "goldens" / "two_phase_drop.npz"))
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        iters = []
+        state = twophase.init_two_phase_state(g, cfg, vf0, torch.float64, dev)
+        state = twophase.run(state, t_end, g, cfg, callback=lambda s: iters.append(int(s.flow.p_iter)))
+        out = {"U": state.flow.U, "V": state.flow.V, "p": state.flow.p, "vf": state.vf, "curv": state.curv}
+        runs[dev.type] = ({k: v.cpu().numpy() for k, v in out.items()}, iters, float(state.flow.t))
+    (gpu, ig, tg), (cpu, ic, tc) = runs["cuda"], runs["cpu"]
+    require(abs(tg - float(gold["t"])) <= 1e-14 and abs(tc - float(gold["t"])) <= 1e-14,
+            f"end times {tg}, {tc} differ from the golden {float(gold['t'])}")
+    for k in gpu:
+        rel = float(np.abs(gpu[k] - cpu[k]).max() / np.abs(cpu[k]).max())
+        rel_g = float(np.abs(gpu[k] - gold[k]).max() / np.abs(gold[k]).max())
+        rel_c = float(np.abs(cpu[k] - gold[k]).max() / np.abs(gold[k]).max())
+        log(f"  {k}: |gpu - cpu| {rel:.3e}, |gpu - golden| {rel_g:.3e}, |cpu - golden| {rel_c:.3e} "
+            "(max abs over max|ref|)")
+        require(rel <= 1e-9, f"two-phase drop f64 {k}: gpu vs cpu {rel:.3e} > 1e-9")
+        require(rel_g <= 1e-8 and rel_c <= 1e-8, f"two-phase drop f64 {k}: off the golden by > 1e-8")
+    log(f"  p_iter per step: gpu {ig}, cpu {ic}")
+    require(len(ig) == len(ic) == 15 and all(abs(a - b) <= 1 for a, b in zip(ig, ic)),
+            "p_iter differs by more than 1")
+
+
 # ---- phase 5 ---------------------------------------------------------------
-def full_size_phase(device) -> dict:
+def full_size_phase(device) -> None:
     from fluidsolver_tpu_torch.cases import get_case
     from fluidsolver_tpu_torch.core import sync
     from fluidsolver_tpu_torch.ops import stencil
@@ -242,7 +576,7 @@ def full_size_phase(device) -> dict:
         res.append(float(state.p_res))
     launches = dict(_kernels.launches)
     log(f"  launches in make_step + 20 steps: {launches}")
-    for name in REPLACES:
+    for name in ("fused_rap", "fused_smooth", "tail_setup", "tail_cycle"):
         require(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
     # one V-cycle per PCG iteration plus one per solve; each runs one tail
     # cycle and two smoothing phases per level above the tail
@@ -272,7 +606,8 @@ def full_size_phase(device) -> dict:
         state = step(state, case.t_end)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    counts = {k: sum(TRACE_NAMES[k] in n for n in names) for k in TRACE_NAMES}
+    pressure_kernels = ("fused_rap", "fused_smooth", "tail_setup", "tail_cycle")
+    counts = {k: sum(TRACE_NAMES[k] in n for n in names) for k in pressure_kernels}
     log(f"  profiler: {len(names)} device events; our kernels: {counts}; "
         f"PCG iterations in the profiled step: {int(state.p_iter)}")
     require(len(names) > 0, "the profiler recorded no device events")
@@ -284,22 +619,136 @@ def full_size_phase(device) -> dict:
             "smoothing phases (every PCG iteration)")
 
     # where the device time of 3 steps goes, and the device's idle share
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            state = step(state, case.t_end)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n = next((k for k, v in TRACE_NAMES.items() if v in e.name), e.name[:70])
-            t, c = by_name.get(n, (0.0, 0))
-            by_name[n] = (t + e.time_range.elapsed_us(), c + 1)
-    busy = sum(t for t, _ in by_name.values())
+    by_name, busy, wall_us, _ = profile_steps(lambda: step(state, case.t_end), 3)
     log(f"  3 profiled steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
         f"idle share {1 - busy / wall_us:.3f}; device time by kernel (ms, launches):")
     for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"    {t / 1e3:9.4f}  {c:5d}  {n}")
+
+
+def profile_steps(run_step, n: int):
+    """Profile ``n`` calls of ``run_step``. Returns (device time by kernel
+    name -> (us, launches), busy us, wall us, range name -> device us). A
+    kernel counts toward a ``twophase.*`` profiler range when it starts
+    inside that range's span on the device timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device
+             if e.name.startswith("twophase.")]
+    by_name, ranges = {}, {}
+    for e in device:
+        if e.name.startswith("twophase."):
+            continue
+        us = e.time_range.elapsed_us()
+        name = next((k for k, v in TRACE_NAMES.items() if v in e.name), e.name[:70])
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us, c + 1)
+        for r, start, end in spans:
+            if start <= e.time_range.start < end:
+                ranges[r] = ranges.get(r, 0.0) + us
+                break
+    busy = sum(t for t, _ in by_name.values())
+    return by_name, busy, wall_us, ranges
+
+
+# ---- phase 6 ---------------------------------------------------------------
+def above_tail_levels(shape) -> int:
+    """Levels built by fused_rap (above the coarse tail) for a finest box of
+    ``shape``: the structure of boxmg.build_hierarchy, decided by shape."""
+    from fluidsolver_tpu_torch.poisson import boxmg
+
+    built = 0
+    while True:
+        n_rem = boxmg._remaining_depth(shape, built)
+        if boxmg.tail_fits(shape, n_rem) or n_rem == 1:
+            return built
+        built += 1
+        shape = ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
+
+
+def bench_phase(device, g, cfg, vf0) -> dict:
+    from fluidsolver_tpu_torch.core import sync
+    from fluidsolver_tpu_torch.ops import stencil
+    from fluidsolver_tpu_torch.poisson import _kernels
+    from fluidsolver_tpu_torch.solvers import twophase
+
+    dtype = torch.float32
+    n_steps, t_end = 20, 1e9
+    state = twophase.init_two_phase_state(g, cfg, vf0, dtype, device)
+    vol0 = float(state.vf[1:-1, 1:-1].double().sum())
+    step = twophase.make_step(g, cfg, dtype, device)
+    torch.cuda.synchronize()
+
+    _kernels.launches.clear()
+    ms, iters, syncs, errs = [], [], [], []
+    for _ in range(n_steps):
+        s0 = sync.count
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = step(state, t_end)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        syncs.append(sync.count - s0)
+        iters.append(int(state.flow.p_iter))
+        errs.append(float(state.vof_vol_error))
+    launches = dict(_kernels.launches)
+    log(f"  launches in 20 steps: {launches}")
+    for name in REPLACES:
+        require(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
+    n_above = above_tail_levels(g.shape_center)
+    cycles = sum(iters) + n_steps * cfg.num_subiter
+    expected = {"elvira": n_steps, "curvature": n_steps, "overlap": n_steps,
+                "fused_rap": n_above * n_steps, "tail_setup": n_steps,
+                "tail_cycle": cycles, "fused_smooth": 2 * n_above * cycles}
+    log(f"  expected launches: {expected}")
+    require(all(launches.get(k) == v for k, v in expected.items()),
+            "the launch counts differ from one VOF kernel each, one hierarchy and one V-cycle "
+            "per PCG iteration and solve per step")
+
+    vf = state.vf[1:-1, 1:-1]
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (state.flow.U, state.flow.V, state.flow.p, state.vf, state.curv))
+    div = stencil.divergence(state.flow.U, state.flow.V, g.dx, g.dy)[1:-1, 1:-1]
+    drift = (float(vf.double().sum()) - vol0) / vol0
+    vf_min, vf_max = float(vf.min()), float(vf.max())
+    log(f"  ms/step (CUDA events; median of steps 4-20): {statistics.median(ms[3:]):.4f}; "
+        f"all steps: {[round(v, 3) for v in ms]}")
+    log(f"  p_iter per step: {iters}")
+    log(f"  host syncs per step: {syncs}")
+    log(f"  vof_vol_error per step: {['%.3e' % e for e in errs]}")
+    log(f"  vf in [{vf_min:.9f}, {vf_max:.9f}]; relative drift of sum(vf) over 20 steps {drift:.3e}; "
+        f"max|div| {float(div.abs().max()):.3e}; t = {float(state.flow.t):.6f}")
+    require(finite, "non-finite U, V, p, vf or curv")
+    require(all(math.isfinite(e) for e in errs), "vof_vol_error is not finite")
+    require(vf_min >= -1e-5 and vf_max <= 1.0 + 1e-5, "vf left [-1e-5, 1 + 1e-5]")
+    require(all(1 + i <= s <= 1 + i + cfg.num_subiter for s, i in zip(syncs, iters)),
+            "host syncs per step should be 1 (dt > 0) + one PCG exit test per iteration and solve")
+
+    holder = [state]
+
+    def one():
+        holder[0] = step(holder[0], t_end)
+
+    by_name, busy, wall_us, ranges = profile_steps(one, 3)
+    ours = {k: by_name.get(k, (0.0, 0)) for k in REPLACES}
+    vof_total = ranges.get(twophase.VOF_RANGE, 0.0)
+    pressure_total = ranges.get(twophase.PRESSURE_RANGE, 0.0)
+    vof_kernels = sum(ours[k][0] for k in ("elvira", "curvature", "overlap"))
+    log(f"  3 profiled steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+        f"idle share {1 - busy / wall_us:.3f}")
+    log(f"    VOF kernels {vof_kernels / 1e3:.4f} ms; rest of the VOF stage "
+        f"{(vof_total - vof_kernels) / 1e3:.4f} ms; pressure solves (with the hierarchy) "
+        f"{pressure_total / 1e3:.4f} ms; other work {(busy - vof_total - pressure_total) / 1e3:.4f} ms")
+    log("    device time by kernel (ms, launches):")
+    for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"    {t / 1e3:9.4f}  {c:5d}  {n}")
     return {"launches": launches}
 
@@ -310,6 +759,7 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     phase = "1 device"
+    errors = Errors()
     try:
         # phase 1
         name = torch.cuda.get_device_name(0)
@@ -329,31 +779,45 @@ def main() -> int:
         _kernels.lib()
         log(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.1f} s ({_kernels.library_path().name})")
 
+        g_bench, cfg_bench = bench_case()
+        t0 = time.perf_counter()
+        vf_bench = bench_vf0(g_bench)
+        log(f"bench drop vf0 (1026^2, 16x16 Gauss points per cell) in {time.perf_counter() - t0:.1f} s")
+
         phase = "3 kernels vs twins"
-        log("phase 3: kernels against their twins on the card")
-        errors = Errors()
+        log("phase 3: BoxMG kernels against their twins on the card")
         times = kernel_phase(device, errors)
-        for k, (tk, tt) in times.items():
-            log(f"  {k}: kernel {tk:.4f} ms, twin {tt:.4f} ms (f32, main-path shape)")
+        phase = "3b VOF kernels vs twins"
+        log("phase 3b: VOF kernels against their twins on the card")
+        times.update(vof_kernel_phase(device, errors, vf_bench, g_bench))
+        for k, (tk, tt, tb, by) in times.items():
+            log(f"  {k}: kernel {tk:.4f} ms, twin {tt:.4f} ms, bound {tb:.4f} ms ({by}) "
+                "(f32, main-path shape)")
 
         phase = "4 cross-check"
         log("phase 4: lid_driven(256) f64 tol 1e-11, 3 steps, GPU kernels vs CPU twins")
         cross_check_phase(device)
+        phase = "4b two-phase cross-check"
+        log("phase 4b: golden two-phase drop 64^2 f64 tol 1e-10, 15 steps, GPU vs CPU vs golden")
+        two_phase_cross_check_phase(device)
 
         phase = "5 full size"
         log("phase 5: lid_driven(1024) f32, 20 steps on the card")
-        full = full_size_phase(device)
+        full_size_phase(device)
+        phase = "6 bench"
+        log("phase 6: two-phase bench configuration 1024^2 f32, 20 steps on the card")
+        launches = bench_phase(device, g_bench, cfg_bench, vf_bench)["launches"]
     except Exception as exc:  # report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         import traceback
 
         traceback.print_exc()
         return 1
-
     kernels = [{
         "name": k, "route": "cuda", "source": REPLACES[k][0], "replaces": REPLACES[k][1],
-        "launches": full["launches"].get(k, 0), "max_abs_err": errors.max_abs[k],
-        "ms": times[k][0], "plain_ms": times[k][1],
+        "launches": launches.get(k, 0), "max_abs_err": errors.max_abs[k],
+        "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": times[k][2], "bound_by": times[k][3],
+        "library_ms": None,
     } for k in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -155,3 +155,24 @@ def apply_velocity_bcs(U: torch.Tensor, V: torch.Tensor, grid: Grid, bcs: FlowBC
         V[:, ny + 1] = 0.0
 
     return U, V
+
+
+def apply_neumann_scalar(f: torch.Tensor) -> torch.Tensor:
+    """Copy of ``f`` with its ghost ring := nearest interior value, x-direction
+    first then y (the corners take the y-fill of the x-filled rows)."""
+    f = f.clone()
+    f[0, :] = f[1, :]
+    f[-1, :] = f[-2, :]
+    f[:, 0] = f[:, 1]
+    f[:, -1] = f[:, -2]
+    return f
+
+
+def apply_dirichlet_scalar(f: torch.Tensor, value: float) -> torch.Tensor:
+    """Copy of ``f`` with its ghost ring := ``value``."""
+    f = f.clone()
+    f[0, :] = value
+    f[-1, :] = value
+    f[:, 0] = value
+    f[:, -1] = value
+    return f

@@ -1,5 +1,6 @@
 """Momentum transport on the staggered grid: port of
-``fluidsolver_tpu.ops.momentum`` (single-phase functions).
+``fluidsolver_tpu.ops.momentum`` (momentum and density transport, the
+two-phase property mixing and the capillary pressure jump).
 
 Conservative flux form with hybrid central/upwind interpolation at density
 jumps, the same expressions in the same floating-point order as the JAX
@@ -13,6 +14,8 @@ import math
 
 import torch
 
+from fluidsolver_tpu_torch.constants import vf_cutoffs
+from fluidsolver_tpu_torch.core.bc import apply_neumann_scalar
 from fluidsolver_tpu_torch.core.fields import pad_interior, set_interior
 
 
@@ -91,6 +94,52 @@ def calc_dmomdt(U, V, rho_u_old, rho_v_old, visc, p, p_jump_u, p_jump_v,
     return dmomU, dmomV
 
 
+def _hybrid_rho(rho_eps, rho_m, rho_p, transp_m, transp_p):
+    """The density half of :func:`hybrid_interp`."""
+    upwind_minus = transp_p + transp_m >= 0.0
+    rho_up = torch.where(upwind_minus, rho_m, rho_p)
+    use_up = torch.abs(rho_p - rho_m) > rho_eps
+    return torch.where(use_up, rho_up, 0.5 * (rho_p + rho_m))
+
+
+def calc_drhodt(U, V, rho_u_old, rho_v_old, dx: float, dy: float, rho_eps: float):
+    """Consistent mass/density transport with the same hybrid fluxes.
+    Returns (drho_u_dt, drho_v_dt) with zero ghost rings."""
+    # FXU = -rho*U on the center mesh
+    rho_h = _hybrid_rho(rho_eps, rho_u_old[:-1, :], rho_u_old[1:, :], U[:-1, :], U[1:, :])
+    FXU = -rho_h * 0.5 * (U[:-1, :] + U[1:, :])
+
+    # FYU = -rho*V on the corner mesh
+    u_lo, u_hi = U[1:-1, :-1], U[1:-1, 1:]
+    v_lo, v_hi = V[:-1, 1:-1], V[1:, 1:-1]
+    rho_h = _hybrid_rho(rho_eps, rho_u_old[1:-1, :-1], rho_u_old[1:-1, 1:], v_lo, v_hi)
+    FYU = -rho_h * 0.5 * (v_lo + v_hi)
+
+    drho_u = pad_interior(
+        (FXU[1:, 1:-1] - FXU[:-1, 1:-1]) / dx + (FYU[:, 1:] - FYU[:, :-1]) / dy
+    )
+
+    # FXV = -rho*U on the corner mesh
+    rho_h = _hybrid_rho(rho_eps, rho_v_old[:-1, 1:-1], rho_v_old[1:, 1:-1], u_lo, u_hi)
+    FXV = -rho_h * 0.5 * (u_lo + u_hi)
+
+    # FYV = -rho*V on the center mesh
+    rho_h = _hybrid_rho(rho_eps, rho_v_old[:, :-1], rho_v_old[:, 1:], V[:, :-1], V[:, 1:])
+    FYV = -rho_h * 0.5 * (V[:, :-1] + V[:, 1:])
+
+    drho_v = pad_interior(
+        (FXV[1:, :] - FXV[:-1, :]) / dx + (FYV[1:-1, 1:] - FYV[1:-1, :-1]) / dy
+    )
+    return drho_u, drho_v
+
+
+def update_density(rho_u_old, rho_v_old, drho_u, drho_v, dt, rho_u, rho_v):
+    """rho = rho_old + dt*drhodt on the interior (ghost ring of ``rho_*`` kept)."""
+    rho_u = set_interior(rho_u, rho_u_old[1:-1, 1:-1] + dt * drho_u[1:-1, 1:-1])
+    rho_v = set_interior(rho_v, rho_v_old[1:-1, 1:-1] + dt * drho_v[1:-1, 1:-1])
+    return rho_u, rho_v
+
+
 def update_velocity(U_old, V_old, rho_u_old, rho_v_old, rho_u, rho_v, dmomU, dmomV, dt, U, V):
     """U = (rho_old*U_old + dt*dmomUdt)/rho on the interior."""
     U = set_interior(
@@ -141,3 +190,47 @@ def correct_outflow(U, rho_u, mass_error):
     U = U.clone()
     U[-1, :] += -mass_error / (rho_u[-1, :] * U.shape[1])
     return U
+
+
+# ---- two-phase property mixing ---------------------------------------------
+def mix_rho_staggered(vf, rho_gas: float, rho_liquid: float):
+    """Linear-by-volume-fraction density averaged onto the staggered faces;
+    ghost ring by Neumann fill. Returns (rho_u, rho_v)."""
+    rho_c = vf * rho_liquid + (1.0 - vf) * rho_gas
+    rho_u = apply_neumann_scalar(pad_interior(0.5 * (rho_c[:-1, :] + rho_c[1:, :])[:, 1:-1]))
+    rho_v = apply_neumann_scalar(pad_interior(0.5 * (rho_c[:, :-1] + rho_c[:, 1:])[1:-1, :]))
+    return rho_u, rho_v
+
+
+def mix_visc(vf, visc_gas: float, visc_liquid: float, arithmetic: bool = False):
+    """Harmonic (default) or arithmetic viscosity on cell centers, with the
+    pure-phase cutoffs of ``constants.vf_cutoffs``; Neumann ghost fill."""
+    if arithmetic:
+        visc = vf * visc_liquid + (1.0 - vf) * visc_gas
+    else:
+        lo, hi = vf_cutoffs(vf.dtype)
+        harmonic = (visc_liquid * visc_gas) / (visc_liquid * (1.0 - vf) + visc_gas * vf)
+        visc = torch.where(vf < lo, torch.full_like(vf, visc_gas),
+                           torch.where(vf > hi, torch.full_like(vf, visc_liquid), harmonic))
+    return apply_neumann_scalar(visc)
+
+
+# ---- surface tension as a staggered pressure jump ---------------------------
+def _face_curvature(curv_m, curv_p, len_m, len_p):
+    """Interface-length-weighted average of the two cells' curvatures; 0
+    where neither cell has an interface."""
+    total = len_m + len_p
+    has = total > 0.0
+    avg = (curv_p * len_p + curv_m * len_m) / torch.where(has, total, torch.ones_like(total))
+    return torch.where(has, avg, torch.zeros_like(avg))
+
+
+def calc_pressure_jump(vf, curv, interface_length, sigma: float, dx: float, dy: float):
+    """p_jump = sigma * kappa_face * grad(vf) on the interior faces (zero
+    ghost rings). Returns (p_jump_u, p_jump_v)."""
+    L = interface_length
+    curv_face = _face_curvature(curv[:-1, 1:-1], curv[1:, 1:-1], L[:-1, 1:-1], L[1:, 1:-1])
+    p_jump_u = pad_interior(sigma * curv_face * (vf[1:, 1:-1] - vf[:-1, 1:-1]) / dx)
+    curv_face = _face_curvature(curv[1:-1, :-1], curv[1:-1, 1:], L[1:-1, :-1], L[1:-1, 1:])
+    p_jump_v = pad_interior(sigma * curv_face * (vf[1:-1, 1:] - vf[1:-1, :-1]) / dy)
+    return p_jump_u, p_jump_v

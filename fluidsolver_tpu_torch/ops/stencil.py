@@ -42,3 +42,46 @@ def shift_pressure_to_zero(dp: torch.Tensor, dx: float, dy: float) -> torch.Tens
     """Gauge fix. The reference subtracts the volume integral (sum times cell
     volume), not the mean; kept as the JAX package keeps it."""
     return dp - integrate(dp, dx, dy, include_ghost=True)
+
+
+# ---- point sampling ---------------------------------------------------------
+def _bilinear_indices(pos, g0: float, delta: float, n: int):
+    """Lower and upper interior cell indices of the bilinear stencil at
+    ``pos``, clamped to [0, n) (constant extrapolation outside)."""
+    q = (pos - g0) / delta
+    prev = torch.floor(q).to(torch.int64)
+    nxt = torch.floor(q + 1.0).to(torch.int64)
+    lo = (pos <= g0) | (prev < 0)
+    hi = (pos >= g0 + (n - 1) * delta) | (nxt >= n)
+    prev = torch.where(lo, 0, torch.where(hi, n - 1, prev))
+    nxt = torch.where(lo, 0, torch.where(hi, n - 1, nxt))
+    return prev, nxt
+
+
+def _cell_offset(g0: float, idx, delta: float, dtype):
+    """g0 + idx * delta evaluated in f64 and rounded once to ``dtype`` (the
+    JAX package's int-times-float promotion under x64)."""
+    return (g0 + idx.to(torch.float64) * delta).to(dtype)
+
+
+def sample_centered(field, x0: float, dx: float, y0: float, dy: float, px, py):
+    """Bilinear sample of a cell-centered ghosted field at points (px, py),
+    clamped to the interior. ``x0``/``y0`` are the first interior center
+    coordinates; the interior has field.shape - 2 cells."""
+    return sample_centered_stack(field[None], x0, dx, y0, dy, px, py)[0]
+
+
+def sample_centered_stack(fields, x0: float, dx: float, y0: float, dy: float, px, py):
+    """``sample_centered`` for a stack (F, nx+2, ny+2) of fields at the same
+    points; returns (F,) + px.shape."""
+    ip, inx = _bilinear_indices(px, x0, dx, fields.shape[1] - 2)
+    jp, jnx = _bilinear_indices(py, y0, dy, fields.shape[2] - 2)
+    f00 = fields[:, ip + 1, jp + 1]
+    f10 = fields[:, inx + 1, jp + 1]
+    f01 = fields[:, ip + 1, jnx + 1]
+    f11 = fields[:, inx + 1, jnx + 1]
+    xi = px - _cell_offset(x0, ip, dx, px.dtype)
+    eta = py - _cell_offset(y0, jp, dy, py.dtype)
+    a = (f10 - f00) / dx * xi + f00
+    b = (f11 - f01) / dx * xi + f01
+    return (b - a) / dy * eta + a

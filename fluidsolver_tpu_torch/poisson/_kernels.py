@@ -1,7 +1,8 @@
 """Build, load and bind the CUDA kernels of ``fluidsolver_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, into
+The sources (the BoxMG kernels and the VOF kernels) are compiled with
+``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
+at first use, into
 ``fluidsolver_tpu_torch/_build/`` (named by a hash of the sources and the
 flags, so an edited source rebuilds), and bound with ``ctypes``. A missing
 compiler, a failed build or a card that is not Hopper raises.
@@ -27,15 +28,17 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu")
-HEADERS = ("boxmg_device.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu", "elvira.cu", "curvature.cu",
+           "overlap.cu")
+HEADERS = ("boxmg_device.cuh", "vof_device.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # dtype, ncoef, op, N, M, out, stream
     "fs_fused_rap": (_I, _I, _P, _I, _I, _P, _P),
@@ -48,6 +51,13 @@ _SIGNATURES = {
     # dtype, ncoef0, op0, buf, b, x_out, scratch, N, M, n_levels, n_pre,
     # n_post, stream
     "fs_tail_cycle": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dtype, vf, N, M, dx, dy, lo, hi, out (3 planes), valid, stream
+    "fs_elvira": (_I, _P, _I, _I, _D, _D, _D, _D, _P, _P, _P),
+    # dtype, nx, ny, d, valid, N, M, dx, dy, out, stream
+    "fs_curvature": (_I, _P, _P, _P, _P, _I, _I, _D, _D, _P, _P),
+    # dtype, slots_x, slots_y, lane_i, lane_j, vf, valid, nx, ny, d, N, M, m,
+    # dx, dy, lo, overlap, area, stream
+    "fs_overlap": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P, _P, _P),
 }
 
 
@@ -68,24 +78,43 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the library if it is not built yet; returns its path. With
-    ``verbose``, ptxas reports registers, shared memory and spills."""
+    """Compile the library if it is not built yet; returns its path. Each
+    source compiles in its own ``nvcc`` process, all started together, and
+    the objects are linked into one shared library. With ``verbose``,
+    ptxas reports registers, shared memory and spills."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    jobs = []
+    for src in SOURCES:
+        cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", str(CSRC / src), "-o", str(work / (src + ".o"))]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode}):\n{err[-3000:]}")
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(work / "lib.so"),
+               *(str(work / (src + ".o")) for src in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, so)
+        print("\n".join(log), end="")
+    os.replace(work / "lib.so", so)
+    shutil.rmtree(work, ignore_errors=True)
     return so
 
 

@@ -1,0 +1,251 @@
+"""Two-phase VOF Navier-Stokes solver: port of
+``fluidsolver_tpu.solvers.twophase``.
+
+One step: dt (CFL with the capillary and gravity limits) -> state rotation
+-> ELVIRA reconstruction of vf_old (kernel #10) -> density from vf_old ->
+geometric VOF advection (kernel #12) -> viscosity from the new vf ->
+curvature (kernel #11) and interface length from the vf_old reconstruction
+-> ``num_subiter`` subiterations of { Crank-Nicolson midpoint; consistent
+density transport; momentum with hybrid upwinding and gravity; BCs and the
+outflow correction; divergence plus the pressure-jump increment; BoxMG-PCG
+pressure solve; projection }.
+
+Supported configuration: that of ``solvers/incomp.py`` (PCG with the BoxMG
+preconditioner, no immersed boundary) with the production VOF path
+(sparse advection, volume-matching curvature, pressure-jump surface
+tension). ``pressure_precond_refresh`` "solve" builds the hierarchy inside
+every solve; "step" builds it once per step from subiteration 0's
+transported densities and reuses it for the rest. Other settings raise.
+
+Host reads per step: ``dt > 0`` and each PCG iteration's exit test
+(``core.sync``); the VOF stage adds none. The VOF stage and the pressure
+solves run inside the profiler ranges ``VOF_RANGE`` and ``PRESSURE_RANGE``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Mapping
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from fluidsolver_tpu_torch.core import bc as bc_mod
+from fluidsolver_tpu_torch.core import fields, sync
+from fluidsolver_tpu_torch.core.grid import Grid
+from fluidsolver_tpu_torch.ops import momentum as mom
+from fluidsolver_tpu_torch.ops import stencil
+from fluidsolver_tpu_torch.solvers import incomp
+from fluidsolver_tpu_torch.solvers.config import SolverConfig
+from fluidsolver_tpu_torch.solvers.state import (FlowState, clamp_dt_to_end, end_tolerance,
+                                                  init_flow_state, state_from_numpy,
+                                                  state_to_numpy)
+from fluidsolver_tpu_torch.vof import advect as adv
+from fluidsolver_tpu_torch.vof import plic
+from fluidsolver_tpu_torch.vof.curvature import curvature_quad_volume_matching
+
+
+# profiler ranges around the VOF stage and each pressure solve (with its
+# hierarchy build); a run's device time can be split by them
+VOF_RANGE = "twophase.vof"
+PRESSURE_RANGE = "twophase.pressure"
+
+
+@dataclasses.dataclass
+class TwoPhaseState:
+    flow: FlowState
+    vf: torch.Tensor
+    vf_old: torch.Tensor
+    curv: torch.Tensor
+    interface_length: torch.Tensor
+    vof_vol_error: torch.Tensor
+
+
+def init_two_phase_state(grid: Grid, cfg: SolverConfig, vf0, dtype: torch.dtype,
+                         device) -> TwoPhaseState:
+    """Quiescent state with the volume fractions ``vf0`` (numpy or tensor
+    over the full ghost box, e.g. from ``vof.init.liquid_fraction_from_indicator``)."""
+    flow = init_flow_state(grid, cfg.rho_gas, cfg.visc_gas, dtype, device)
+    vf = torch.as_tensor(np.asarray(vf0), dtype=dtype, device=device)
+    rho_u, rho_v = mom.mix_rho_staggered(vf, cfg.rho_gas, cfg.rho_liquid)
+    visc = mom.mix_visc(vf, cfg.visc_gas, cfg.visc_liquid, cfg.arithmetic_visc)
+    flow = dataclasses.replace(flow, rho_u=rho_u, rho_v=rho_v, rho_u_old=rho_u,
+                               rho_v_old=rho_v, visc=visc)
+    return TwoPhaseState(flow=flow, vf=vf, vf_old=vf, curv=torch.zeros_like(vf),
+                         interface_length=torch.zeros_like(vf),
+                         vof_vol_error=torch.zeros((), dtype=dtype, device=device))
+
+
+_VOF_FIELDS = ("vf", "vf_old", "curv", "interface_length", "vof_vol_error")
+
+
+def two_phase_state_from_numpy(arrays, device) -> TwoPhaseState:
+    """A ``TwoPhaseState`` on ``device`` from numpy arrays: a mapping with
+    a ``flow`` mapping and the VOF fields, or any object with those
+    attributes (e.g. the JAX package's state). Dtypes are kept."""
+    get = arrays.__getitem__ if isinstance(arrays, Mapping) else (lambda n: getattr(arrays, n))
+    return TwoPhaseState(flow=state_from_numpy(get("flow"), device), **{
+        name: torch.as_tensor(np.array(get(name)), device=device) for name in _VOF_FIELDS})
+
+
+def two_phase_state_to_numpy(state: TwoPhaseState) -> dict:
+    """{"flow": field name -> array, and each VOF field -> array}."""
+    out = {name: getattr(state, name).detach().cpu().numpy() for name in _VOF_FIELDS}
+    out["flow"] = state_to_numpy(state.flow)
+    return out
+
+
+def _check_supported(cfg: SolverConfig) -> None:
+    if cfg.surface_tension_method != "pressure_jump":
+        raise ValueError(f"surface_tension_method={cfg.surface_tension_method!r} is not ported")
+    if cfg.phase_change_mdot is not None:
+        raise ValueError("phase change (phase_change_mdot) is not ported")
+    if cfg.pressure_precond_refresh not in ("solve", "step"):
+        raise ValueError(f"pressure_precond_refresh={cfg.pressure_precond_refresh!r}: "
+                         "use 'solve' or 'step'")
+    if cfg.vof_max_active == 0 or cfg.vof_no_correction or cfg.vof_staggered_backtrace:
+        raise ValueError("the dense VOF advection and its A/B variants are not ported")
+    if cfg.curvature_method != "volume_matching":
+        raise ValueError(f"curvature_method={cfg.curvature_method!r} is not ported")
+
+
+def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=None) -> Callable:
+    """Build ``step(state, t_end) -> state`` for states of ``dtype`` on
+    ``device``. The BoxMG hierarchy depends on the transported densities,
+    so it is built inside the step (see the module doc)."""
+    if mesh is not None:
+        raise ValueError("the multi-device (mesh) step is not ported")
+    incomp._check_supported(cfg)
+    _check_supported(cfg)
+    device = torch.device(device)
+    rho_eps = mom.calc_rho_eps(cfg.rho_gas, cfg.rho_liquid)
+    gx, gy = cfg.gravity
+    per_step = cfg.pressure_precond_refresh == "step"
+
+    def subiter(fs: FlowState, dp_prev, vof, dt, k: int, levels):
+        vf_old, curv, iface_len = vof
+        U = stencil.mid_time(fs.U, fs.U_old)
+        V = stencil.mid_time(fs.V, fs.V_old)
+
+        # consistent density transport, then momentum (+ gravity)
+        drho_u, drho_v = mom.calc_drhodt(U, V, fs.rho_u_old, fs.rho_v_old, grid.dx, grid.dy, rho_eps)
+        rho_u, rho_v = mom.update_density(fs.rho_u_old, fs.rho_v_old, drho_u, drho_v, dt,
+                                          fs.rho_u, fs.rho_v)
+        rho_u = bc_mod.apply_neumann_scalar(rho_u)
+        rho_v = bc_mod.apply_neumann_scalar(rho_v)
+        dmomU, dmomV = mom.calc_dmomdt(U, V, fs.rho_u_old, fs.rho_v_old, fs.visc, fs.p,
+                                       fs.p_jump_u, fs.p_jump_v, grid.dx, grid.dy, rho_eps)
+        if gx != 0.0:
+            dmomU = fields.add_interior(dmomU, rho_u[1:-1, 1:-1] * gx)
+        if gy != 0.0:
+            dmomV = fields.add_interior(dmomV, rho_v[1:-1, 1:-1] * gy)
+        U, V = mom.update_velocity(fs.U_old, fs.V_old, fs.rho_u_old, fs.rho_v_old,
+                                   rho_u, rho_v, dmomU, dmomV, dt, U, V)
+        U, V = bc_mod.apply_velocity_bcs(U, V, grid, cfg.bcs, fs.t)
+        if cfg.outflow_correction:
+            _, _, mass_err = mom.inflow_outflow(U, rho_u)
+            U = mom.correct_outflow(U, rho_u, mass_err)
+
+        # capillary forcing: the pressure-jump increment folded into the RHS
+        div = stencil.divergence(U, V, grid.dx, grid.dy)
+        pj_u, pj_v = mom.calc_pressure_jump(vf_old, curv, iface_len, cfg.sigma, grid.dx, grid.dy)
+        dpj_u = pj_u - fs.p_jump_u
+        dpj_v = pj_v - fs.p_jump_v
+        div = fields.add_interior(div, dt * (
+            (dpj_u[2:-1, 1:-1] / rho_u[2:-1, 1:-1] - dpj_u[1:-2, 1:-1] / rho_u[1:-2, 1:-1]) / grid.dx
+            + (dpj_v[1:-1, 2:-1] / rho_v[1:-1, 2:-1] - dpj_v[1:-1, 1:-2] / rho_v[1:-1, 1:-2]) / grid.dy
+        ))
+        fs = dataclasses.replace(fs, rho_u=rho_u, rho_v=rho_v, p_jump_u=pj_u, p_jump_v=pj_v)
+
+        tol = cfg.pressure_tol
+        if cfg.pressure_tol_intermediate is not None and k != cfg.num_subiter - 1:
+            tol = cfg.pressure_tol_intermediate
+        with record_function(PRESSURE_RANGE):
+            if per_step and k == 0:
+                levels = incomp.build_step_levels(rho_u, rho_v, grid, cfg)
+            delta_p, rel, iters = incomp.pressure_solve(
+                fs, div, dt, grid, cfg, x0=dp_prev if cfg.pressure_warm_start else None,
+                levels=levels if per_step else None, tol=tol)
+        p = fs.p + delta_p
+        U, V = incomp.project_velocity(U, V, delta_p, rho_u, rho_v, dt, grid.dx, grid.dy)
+        fs = dataclasses.replace(fs, U=U, V=V, p=p, p_res=rel, p_iter=fs.p_iter + iters)
+        return fs, delta_p, levels
+
+    def step(state: TwoPhaseState, t_end: float) -> TwoPhaseState:
+        fs = state.flow
+        if fs.U.dtype != dtype or fs.U.device != device:
+            raise ValueError(f"step built for {dtype} on {device}, state is "
+                             f"{fs.U.dtype} on {fs.U.device}")
+        dt = mom.adjust_dt(fs.U, fs.V, fs.rho_u, fs.rho_v, fs.visc, grid.dx, grid.dy,
+                           cfg.rho_gas, cfg.rho_liquid, cfg.sigma, cfg.cfl_max, cfg.dt_max)
+        if gy != 0.0:
+            dt = torch.clamp_max(dt, cfg.cfl_max * math.sqrt(grid.dy / abs(gy)))
+        if gx != 0.0:
+            dt = torch.clamp_max(dt, cfg.cfl_max * math.sqrt(grid.dx / abs(gx)))
+        dt = clamp_dt_to_end(dt, fs.t, t_end)
+
+        # rotation: velocity now, density after remixing from vf_old
+        fs = dataclasses.replace(fs, U_old=fs.U, V_old=fs.V)
+        vf_old = state.vf
+        with record_function(VOF_RANGE):
+            rec = plic.elvira(vf_old, grid.dx, grid.dy)
+            rho_u, rho_v = mom.mix_rho_staggered(vf_old, cfg.rho_gas, cfg.rho_liquid)
+            fs = dataclasses.replace(fs, rho_u=rho_u, rho_v=rho_v, rho_u_old=rho_u,
+                                     rho_v_old=rho_v)
+            vf, vol_err = adv.advect(vf_old, rec, fs.U, fs.V, stencil.interp_u_center(fs.U),
+                                     stencil.interp_v_center(fs.V), grid, dt,
+                                     max_active=cfg.vof_max_active)
+            vol_err = torch.where(rec.overflow, torch.full_like(vol_err, float("inf")), vol_err)
+
+            # viscosity from the new vf; curvature and length from vf_old's planes
+            visc = mom.mix_visc(vf, cfg.visc_gas, cfg.visc_liquid, cfg.arithmetic_visc)
+            fs = dataclasses.replace(fs, visc=visc, p_iter=torch.zeros_like(fs.p_iter))
+            curv = curvature_quad_volume_matching(vf_old, rec, grid)
+            iface_len = plic.interface_length(rec, grid.dx, grid.dy)
+
+        # dt == 0 (t_end reached) skips the physics: the Poisson RHS divides by dt
+        if sync.read(dt > 0.0):
+            dp = torch.zeros_like(fs.p)
+            levels = None
+            for k in range(cfg.num_subiter):
+                fs, dp, levels = subiter(fs, dp, (vf_old, curv, iface_len), dt, k, levels)
+        fs = dataclasses.replace(fs, t=fs.t + dt, dt=dt)
+        return TwoPhaseState(flow=fs, vf=vf, vf_old=vf_old, curv=curv,
+                             interface_length=iface_len, vof_vol_error=vol_err)
+
+    return step
+
+
+def run(state: TwoPhaseState, t_end: float, grid: Grid, cfg: SolverConfig,
+        callback=None, max_steps: int = 1_000_000) -> TwoPhaseState:
+    """Host time loop: while t < t_end."""
+    step = make_step(grid, cfg, state.vf.dtype, state.vf.device)
+    tol = end_tolerance(state.flow.t.dtype, t_end)
+    for _ in range(max_steps):
+        if sync.read(state.flow.t) >= t_end - tol:
+            break
+        state = step(state, t_end)
+        if callback is not None:
+            callback(state)
+    return state
+
+
+def make_fixed_runner(grid: Grid, cfg: SolverConfig, n_steps: int, dtype: torch.dtype,
+                      device) -> Callable:
+    """Fixed-step runner (the JAX package's ``make_scan_runner``): ``n_steps``
+    steps; steps past ``t_end`` clamp to dt = 0."""
+    step = make_step(grid, cfg, dtype, device)
+
+    def run_n(state: TwoPhaseState, t_end: float) -> TwoPhaseState:
+        for _ in range(n_steps):
+            state = step(state, t_end)
+        return state
+
+    return run_n
+
+
+def make_kinematic_step(*args, **kwargs):
+    raise ValueError("the kinematic VOF step (make_kinematic_step, vof_tgv) is not ported")

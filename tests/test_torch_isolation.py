@@ -15,7 +15,7 @@ import chip_smoke
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "fluidsolver_tpu" or k.startswith("fluidsolver_tpu."))
 print(len(mods), bad)
-assert len(mods) >= 15, mods
+assert len(mods) >= 32, mods
 assert not bad, bad
 """
 
