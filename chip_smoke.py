@@ -9,34 +9,45 @@ result line):
   3. each of the four BoxMG kernels against its plain PyTorch twin on the
      card, in f64 at the CPU tests' tolerances and in f32 at a relative
      (to max |twin|) tolerance of 1e-5, at the level shapes of a 1026^2
-     and of an odd 1023 x 771 box; kernel and twin times by CUDA events at
-     the main path's shapes;
+     and of an odd 1023 x 771 box; kernel and twin times by CUDA events
+     (the calls queued behind a device sleep, see time_ms) at the main
+     path's shapes;
   3b. the three VOF kernels (elvira, curvature, overlap) against their twins
      on the bench drop's vf (1026^2 box) and on an odd 1023 x 771 box with
      25 drops: f64 at the CPU tests' tolerances, f32 at the relative 1e-5;
      times at the main path's shape; a lane budget below the active set
      must give an infinite volume error; the VOF stage, queued behind a
      device sleep, must return while the stream is still busy (no host read);
+  3c. the fused PCG iteration (step_ab, step_c, step_init) and the fused
+     momentum stage against their twins on the 1026^2 and 1023 x 771 boxes:
+     f64 at the CPU tests' tolerances, f32 at the relative 1e-5 (a scalar
+     relative to the larger of its value and the two-norm of its terms);
+     step_c singular or not, with and without p; step_ab with alpha = 1,
+     so that its update stands far above the f32 bound; step_init cold,
+     warm with a kept and with a rejected guess, singular or not; times at
+     the main path's shapes;
   4. lid_driven(n=256), f64, pressure_tol=1e-11, 3 steps: the GPU (kernels)
      against the CPU (twins);
   4b. the golden two-phase drop (64^2, 15 steps, f64, tol 1e-10): GPU
-     against CPU and both against tests/goldens/two_phase_drop.npz;
+     against CPU and both against tests/goldens/two_phase_drop.npz; the GPU
+     run must launch kernels 5-8;
   5. lid_driven(n=1024), f32, 20 steps: ms/step, PCG iterations, max |div|,
-     host syncs per step, launch counts, and the kernels seen by
-     torch.profiler over make_step plus one step;
+     host syncs per step, launch counts (the V-cycle and the PCG kernels),
+     and the kernels seen by torch.profiler over make_step plus one step;
   6. the two-phase bench configuration (a drop in an inflow channel, 1024^2,
      1000:1, 5 subiterations, refresh "step", f32), 20 steps: ms/step,
      p_iter, host syncs, VOF volume error, vf bounds and volume drift,
-     max |div|, the launch counts of all seven kernels, and a profiler split
-     of 3 steps (kernels, rest of the VOF stage, pressure solve, other work,
-     idle share).
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+     max |div|, the exact launch counts of all eleven kernels, and a
+     profiler split of 3 steps (kernels, rest of the VOF stage, pressure
+     solve, other work, idle share).
+The second-to-last line is a JSON object with one entry per kernel (the
+launches from phase 6); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -63,7 +74,18 @@ REPLACES = {
                   "fluidsolver_tpu/vof/pallas_curvature.py:92"),
     "overlap": ("fluidsolver_tpu_torch/csrc/overlap.cu",
                 "fluidsolver_tpu/vof/pallas_advect.py:157"),
+    "step_ab": ("fluidsolver_tpu_torch/csrc/cg.cu",
+                "fluidsolver_tpu/poisson/pallas_cg.py:109"),
+    "step_c": ("fluidsolver_tpu_torch/csrc/cg.cu",
+               "fluidsolver_tpu/poisson/pallas_cg.py:287"),
+    "step_init": ("fluidsolver_tpu_torch/csrc/cg.cu",
+                  "fluidsolver_tpu/poisson/pallas_cg.py:462"),
+    "fused_momentum": ("fluidsolver_tpu_torch/csrc/momentum.cu",
+                       "fluidsolver_tpu/ops/pallas_momentum.py:247"),
 }
+# the kernels of the reference's fused composition (its FS_PALLAS_CG and
+# FS_PALLAS_MOMENTUM), ported in one slice
+FUSED = ("step_ab", "step_c", "step_init", "fused_momentum")
 # the names the kernels carry in a profiler trace
 TRACE_NAMES = {k: k + "_kernel" for k in REPLACES}
 F32_RTOL = 1e-5
@@ -185,7 +207,9 @@ class Errors:
     def __init__(self):
         self.max_abs = {}
 
-    def compare(self, name, got, want, dtype, rtol, atol, main_path, what, mask=None):
+    def compare(self, name, got, want, dtype, rtol, atol, main_path, what, mask=None, scale=None):
+        """f64: |got - want| <= atol + rtol |want|; f32: max |got - want| <=
+        F32_RTOL times ``scale`` (default max |want|)."""
         worst = 0.0
         for g, w in zip(list(got), list(want)):
             diff = (g - w).abs()
@@ -195,9 +219,9 @@ class Errors:
                 ok = bool((diff <= atol + rtol * w.abs()).all())
                 bound_txt = "atol %g rtol %g" % (atol, rtol)
             else:
-                scale = float(w.abs().max())
-                ok = float(diff.max()) <= F32_RTOL * max(scale, 1e-30)
-                bound_txt = "%g x max|twin| = %g" % (F32_RTOL, F32_RTOL * scale)
+                s = float(w.abs().max()) if scale is None else scale
+                ok = float(diff.max()) <= F32_RTOL * max(s, 1e-30)
+                bound_txt = "%g x %g = %g" % (F32_RTOL, s, F32_RTOL * s)
             worst = max(worst, float(diff.max()))
             require(ok, f"{name} {what}: max|kernel - twin| = {float(diff.max()):.3e} exceeds {bound_txt}")
         if main_path and dtype == torch.float32:
@@ -205,15 +229,24 @@ class Errors:
         return worst
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, kernel: bool = False) -> float:
+    """Time per call of ``fn`` on the card: CUDA events around ``reps`` calls
+    queued behind a ~0.1 s device sleep, so that the calls run back to back
+    once the sleep ends and the host's enqueue (Python, allocation, launch)
+    is hidden. A ``kernel`` (a few launches per call) must be enqueued before
+    the sleep ends; a twin of many launches may fill the launch queue first,
+    and then its time includes the host's stalls."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    hidden = not start.query()
     torch.cuda.synchronize()
+    require(hidden or not kernel, "the host did not enqueue the timed kernel calls within the device sleep")
     return start.elapsed_time(end) / reps
 
 
@@ -250,14 +283,16 @@ def kernel_phase(device, errors: Errors) -> dict:
                     pts = [a * c for a, c in shapes]
                     # setup: 9 planes in, the pack out; ~540 flops per coarse point
                     bnd = bound(s * (9 * pts[0] + pk.buf.numel()), 540 * sum(pts[1:]), dtype)
-                    times["tail_setup"] = (time_ms(lambda: cuda_tail.build_tail_pack_cuda(op, n_rem), 20),
-                                           time_ms(lambda: cuda_tail.build_tail_pack_twin(op, n_rem), 3), *bnd)
+                    times["tail_setup"] = (
+                        time_ms(lambda: cuda_tail.build_tail_pack_cuda(op, n_rem), 20, kernel=True),
+                        time_ms(lambda: cuda_tail.build_tail_pack_twin(op, n_rem), 3), *bnd)
                     # V(2,2): pack + b in, x out; ~100 flops per point per level,
                     # plus 32 sweeps of ~36 flops per point on the coarsest
                     bnd = bound(s * (pk.buf.numel() + 9 * pts[0] + 2 * pts[0]),
                                 100 * sum(pts) + 32 * 36 * pts[-1], dtype)
-                    times["tail_cycle"] = (time_ms(lambda: cuda_tail.tail_cycle_cuda(pt, b, 2, 2), 50),
-                                           time_ms(lambda: cuda_tail.tail_cycle_twin(pt, b, 2, 2), 3), *bnd)
+                    times["tail_cycle"] = (
+                        time_ms(lambda: cuda_tail.tail_cycle_cuda(pt, b, 2, 2), 50, kernel=True),
+                        time_ms(lambda: cuda_tail.tail_cycle_twin(pt, b, 2, 2), 3), *bnd)
                 log(f"  {tag}: tail at {lshape}, {n_rem} levels: setup and cycle agree")
                 break
             trk, ck = cuda_rap.fused_rap_cuda(op)
@@ -288,14 +323,14 @@ def kernel_phase(device, errors: Errors) -> dict:
                 # ncoef planes in, 8 weight + 9 coefficient coarse planes out;
                 # ~540 flops per coarse point
                 bnd = bound(s * (ncoef * nm + 17 * ncm), 540 * ncm, dtype)
-                times["fused_rap"] = (time_ms(lambda: cuda_rap.fused_rap_cuda(op), 20),
+                times["fused_rap"] = (time_ms(lambda: cuda_rap.fused_rap_cuda(op), 20, kernel=True),
                                       time_ms(lambda: cuda_rap.fused_rap_twin(op), 3), *bnd)
                 # restrict variant: op + b + 8 coarse weights in, x + coarse r
                 # out; 4 half-steps, a residual and a restriction, ~55 flops/point
                 bnd = bound(s * ((ncoef + 2) * nm + 9 * ncm), 55 * nm, dtype)
-                times["fused_smooth"] = (time_ms(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), 50),
-                                         time_ms(lambda: cuda_vcycle.fused_smooth_twin(op, b, **kw), 10),
-                                         *bnd)
+                times["fused_smooth"] = (
+                    time_ms(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), 50, kernel=True),
+                    time_ms(lambda: cuda_vcycle.fused_smooth_twin(op, b, **kw), 10), *bnd)
             log(f"  {tag}: level {lshape}: fused_rap and fused_smooth (4 variants) agree")
             op = ct
             level += 1
@@ -419,14 +454,14 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
 
             if main and dtype == torch.float32:
                 nm = vf.numel()
-                times["elvira"] = (time_ms(lambda: cuda_elvira.elvira_cuda(vf, dx, dy), 50),
+                times["elvira"] = (time_ms(lambda: cuda_elvira.elvira_cuda(vf, dx, dy), 50, kernel=True),
                                    time_ms(lambda: cuda_elvira.elvira_twin(vf, dx, dy), 3),
                                    # vf in; nx, ny, d and a byte plane out;
                                    # ~4000 flops per mixed cell
                                    *bound((2 * s + 1) * nm + 2 * s * nm, 4000 * n_mixed, dtype))
                 planes = (rt.nx, rt.ny, rt.d, rt.valid)
                 times["curvature"] = (
-                    time_ms(lambda: cuda_curvature.curvature_vm_cuda(*planes, dx, dy), 50),
+                    time_ms(lambda: cuda_curvature.curvature_vm_cuda(*planes, dx, dy), 50, kernel=True),
                     time_ms(lambda: cuda_curvature.curvature_vm_twin(*planes, dx, dy), 3),
                     # valid bytes in, curvature out, 3 planes over the valid
                     # cells' neighbourhoods; ~1000 flops per valid cell
@@ -435,7 +470,7 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
                 lane_cells = torch.zeros_like(rt.valid)
                 lane_cells[1 + lanes.iig[act], 1 + lanes.jjg[act]] = True
                 times["overlap"] = (
-                    time_ms(lambda: cuda_advect.overlap_cuda(*args), 50),
+                    time_ms(lambda: cuda_advect.overlap_cuda(*args), 50, kernel=True),
                     time_ms(lambda: cuda_advect.overlap_twin(*args), 3),
                     # per active lane 16 slot values and 2 indices in, 2
                     # values out; 5 fields over the active lanes'
@@ -470,6 +505,152 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
     log(f"  VOF stage (elvira, advect, curvature, interface length) queued behind a device sleep: "
         f"stream still busy on return: {pending}")
     require(pending, "the VOF stage drained the stream (a host read)")
+    return times
+
+
+# ---- phase 3c --------------------------------------------------------------
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def momentum_inputs(shape, seed: int, dtype, device) -> list:
+    """The twelve inputs of fused_momentum for a centre shape (n, m): U-
+    and V-shaped velocities and pressure jumps from a normal distribution,
+    face densities 1 or 1000 at random (both branches of the hybrid
+    interpolation), viscosities in [1e-3, 0.1], a normal pressure."""
+    n, m = shape
+    rng = np.random.default_rng(seed)
+    u, v, c = (n + 1, m), (n, m + 1), (n, m)
+
+    def rho(s):
+        return np.where(rng.random(s) > 0.5, 1000.0, 1.0)
+
+    arrays = [rng.normal(size=u), rng.normal(size=v), rng.normal(size=u), rng.normal(size=v),
+              rho(u), rho(v), rho(u), rho(v), rng.uniform(1e-3, 1e-1, c), rng.normal(size=c),
+              rng.normal(size=u), rng.normal(size=v)]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+def fused_kernel_phase(device, errors: Errors) -> dict:
+    """Kernels 5-8 against their twins. Returns name -> (kernel ms, twin ms,
+    bound ms, bound by)."""
+    from fluidsolver_tpu_torch.ops import cuda_momentum
+    from fluidsolver_tpu_torch.poisson import cuda_cg
+    from fluidsolver_tpu_torch.poisson.linsys import apply_op
+
+    # f64 tolerances (rtol, atol) per output, those of tests/test_torch_fused.py
+    tol_ab = ((1e-12, 1e-12), (1e-10, 1e-9), (1e-12, 0.0), (1e-10, 0.0), (1e-9, 1e-9))
+    tol_c = ((1e-12, 1e-13), (1e-9, 1e-10), (1e-10, 1e-12))
+    tol_init = ((1e-13, 1e-13), (1e-13, 1e-12), (1e-12, 0.0), (1e-11, 1e-13), (1e-10, 1e-11))
+    tol_mom = ((0.0, 1e-11), (0.0, 1e-11), (0.0, 1e-12), (0.0, 1e-12))
+
+    def check(name, got, want, tols, terms, dtype, main, what):
+        """Output k against the twin's; a scalar's f32 scale is the larger of
+        |twin| and the two-norm of the terms it sums (terms[k]). Keeps the
+        worst error over that scale, vectors and scalars apart."""
+        for k, (g, w, (rtol, atol)) in enumerate(zip(got, want, tols)):
+            scale = float(w.abs().max())
+            if g.dim() == 0 and terms[k] is not None:
+                scale = max(scale, float(terms[k].double().norm()))
+            err = errors.compare(name, [g], [w], dtype, rtol, atol, main, f"{what} output {k}", scale=scale)
+            slot = worst.setdefault(name, [0.0, 0.0])
+            slot[g.dim() == 0] = max(slot[g.dim() == 0], err / max(scale, 1e-300))
+
+    times = {}
+    for dtype, shape, main in ((torch.float64, (1026, 1026), True), (torch.float32, (1026, 1026), True),
+                               (torch.float64, (1023, 771), False), (torch.float32, (1023, 771), False)):
+        tag = f"{str(dtype)[6:]} {shape[0]}x{shape[1]}"
+        s = itemsize(dtype)
+        n = shape[0] * shape[1]
+        worst = {}
+        op = random_operator(*shape, seed=13, dtype=dtype, device=device)
+        planes = [op.aC, op.aL, op.aR, op.aB, op.aT]
+        x, r, p, noise, noise2 = (random_field(shape, 400 + k, dtype, device) for k in range(5))
+        # z_raw correlated with r, as a preconditioned residual is: <r, z> > 0
+        z_raw = r + 0.5 * noise2
+        scalar = functools.partial(torch.tensor, dtype=dtype, device=device)
+
+        # step_ab with rz = <p, Ap>, so alpha = 1: x' - x = p and r' - r =
+        # -Ap stand far above the f32 bound, and a kernel that skipped an
+        # axpy or got alpha wrong would fail
+        Ap = apply_op(op, p)
+        rz_ab = torch.sum(p * Ap)
+        got = cuda_cg.step_ab_cuda(op, x, r, p, rz_ab)
+        want = cuda_cg.step_ab_twin(op, x, r, p, rz_ab)
+        check("step_ab", got, want, tol_ab, (None, None, p * Ap, want[1] ** 2, want[1]), dtype, main, tag)
+        for what, new, old in (("x", got[0], x), ("r", got[1], r)):
+            moved = float((new - old).abs().max())
+            require(moved > 1e3 * F32_RTOL * float(new.abs().max()),
+                    f"step_ab {tag}: the update of {what} ({moved:.3e}) is not above the f32 bound")
+
+        # step_c: singular or not, with p (the iteration) and without (the
+        # init); rz_prev = n keeps beta near 1, so z and beta p both show in p'
+        sum_r = torch.sum(r)
+        for singular in (False, True):
+            for with_p in (True, False):
+                args = (r, z_raw, p if with_p else None, scalar(float(n)), singular)
+                got = cuda_cg.step_c_cuda(*args, sum_r=sum_r)
+                want = cuda_cg.step_c_twin(*args, sum_r=sum_r)
+                require((got[1] is got[0]) == (not with_p), "step_c: p' must be z without p")
+                check("step_c", got, want, tol_c, (None, None, r * z_raw), dtype, main,
+                      f"{tag} singular={singular} p={'given' if with_p else 'None'}")
+
+        # step_init: cold; warm with a guess near A x = b (kept) and, on the odd
+        # box, with a random guess (rejected); singular or not
+        b_near = apply_op(op, x) + 0.1 * noise
+        cases = [("cold", b_near, None), ("warm kept", b_near, x)]
+        if not main:
+            cases.append(("warm rejected", r, x))
+        for singular in (False, True):
+            for what, b, x0 in cases:
+                got = cuda_cg.step_init_cuda(op, b, x0, singular)
+                want = cuda_cg.step_init_twin(op, b, x0, singular)
+                b1 = b - b.mean() if singular else b
+                check("step_init", got, want, tol_init, (None, None, b1 ** 2, want[1] ** 2, want[1]),
+                      dtype, main, f"{tag} {what} singular={singular}")
+                kept = bool(got[0].abs().max() > 0)
+                require(kept == (what == "warm kept"), f"step_init {tag} {what}: guess kept = {kept}")
+
+        # fused_momentum, with and without gravity
+        ins = momentum_inputs(shape, 31, dtype, device)
+        dt = scalar(1e-4)
+        hx, hy = 1.0 / (shape[0] - 2), 1.3 / (shape[1] - 2)
+        for gravity in ((0.0, 0.0), (0.3, -9.81)):
+            kw = dict(dx=hx, dy=hy, rho_eps=1e-3, gx=gravity[0], gy=gravity[1])
+            got = cuda_momentum.fused_momentum_cuda(*ins, dt, **kw)
+            want = cuda_momentum.fused_momentum_twin(*ins, dt, **kw)
+            check("fused_momentum", got, want, tol_mom, (None,) * 4, dtype, main, f"{tag} gravity={gravity}")
+        log(f"  {tag}: step_ab, step_c (4 forms), step_init ({len(cases)} x 2 forms) and "
+            "fused_momentum (2 forms) agree; max|kernel - twin| / scale, vectors and scalars: "
+            + ", ".join(f"{k} {v:.2e} {sc:.2e}" for k, (v, sc) in worst.items()))
+
+        if main and dtype == torch.float32:
+            rz_prev = scalar(float(n))
+            # 5 planes and x, r, p in, x' and r' out; 18 flops per point
+            # (matvec 9, 3 dots 5, 2 axpys 4)
+            bnd = bound(nbytes(*planes, x, r, p, rz_ab) + nbytes(x, r) + 3 * s, 18 * n, dtype)
+            times["step_ab"] = (time_ms(lambda: cuda_cg.step_ab_cuda(op, x, r, p, rz_ab), 50, kernel=True),
+                                time_ms(lambda: cuda_cg.step_ab_twin(op, x, r, p, rz_ab), 20), *bnd)
+            # the bench's form (singular, p given): r, z_raw, p in, z and p'
+            # out; 6 flops per point
+            bnd = bound(nbytes(r, z_raw, p, rz_prev, sum_r) + nbytes(z_raw, p) + s, 6 * n, dtype)
+            times["step_c"] = (
+                time_ms(lambda: cuda_cg.step_c_cuda(r, z_raw, p, rz_prev, True, sum_r=sum_r), 50, kernel=True),
+                time_ms(lambda: cuda_cg.step_c_twin(r, z_raw, p, rz_prev, True, sum_r=sum_r), 20), *bnd)
+            # the bench's form (warm, singular): 5 planes, b and x0 in, x0' and
+            # r0' out; 20 flops per point (2 means, projections, matvec, 4 sums)
+            bnd = bound(nbytes(*planes, b_near, x) + nbytes(b_near, x) + 3 * s, 20 * n, dtype)
+            times["step_init"] = (
+                time_ms(lambda: cuda_cg.step_init_cuda(op, b_near, x, True), 50, kernel=True),
+                time_ms(lambda: cuda_cg.step_init_twin(op, b_near, x, True), 20), *bnd)
+            # the bench's form (no gravity): 12 planes in, 4 out; ~120 flops
+            # per cell with each flux formed once
+            kw = dict(dx=hx, dy=hy, rho_eps=1e-3, gx=0.0, gy=0.0)
+            outs = cuda_momentum.fused_momentum_twin(*ins, dt, **kw)
+            bnd = bound(nbytes(*ins, dt) + nbytes(*outs), 120 * n, dtype)
+            times["fused_momentum"] = (
+                time_ms(lambda: cuda_momentum.fused_momentum_cuda(*ins, dt, **kw), 50, kernel=True),
+                time_ms(lambda: cuda_momentum.fused_momentum_twin(*ins, dt, **kw), 20), *bnd)
     return times
 
 
@@ -521,6 +702,9 @@ def golden_drop():
 
 
 def two_phase_cross_check_phase(device) -> None:
+    """The golden drop on the card and on the CPU; the GPU run must launch
+    kernels 5-8."""
+    from fluidsolver_tpu_torch.poisson import _kernels
     from fluidsolver_tpu_torch.solvers import twophase
 
     g, cfg, vf0, t_end = golden_drop()
@@ -528,10 +712,15 @@ def two_phase_cross_check_phase(device) -> None:
     runs = {}
     for dev in (device, torch.device("cpu")):
         iters = []
+        _kernels.launches.clear()
         state = twophase.init_two_phase_state(g, cfg, vf0, torch.float64, dev)
         state = twophase.run(state, t_end, g, cfg, callback=lambda s: iters.append(int(s.flow.p_iter)))
         out = {"U": state.flow.U, "V": state.flow.V, "p": state.flow.p, "vf": state.vf, "curv": state.curv}
         runs[dev.type] = ({k: v.cpu().numpy() for k, v in out.items()}, iters, float(state.flow.t))
+        if dev.type == "cuda":
+            seen = {k: _kernels.launches.get(k, 0) for k in FUSED}
+            log(f"  launches of kernels 5-8 on the card: {seen}")
+            require(all(seen.values()), "the golden drop on the card must launch kernels 5-8")
     (gpu, ig, tg), (cpu, ic, tc) = runs["cuda"], runs["cpu"]
     require(abs(tg - float(gold["t"])) <= 1e-14 and abs(tc - float(gold["t"])) <= 1e-14,
             f"end times {tg}, {tc} differ from the golden {float(gold['t'])}")
@@ -584,6 +773,11 @@ def full_size_phase(device) -> None:
     cycles = sum(iters) + 20 * case.cfg.num_subiter
     require(launches["tail_cycle"] == cycles and launches["fused_smooth"] == 2 * n_above * cycles,
             f"expected {cycles} tail cycles and {2 * n_above * cycles} smoothing phases")
+    # one step_init and one init-form step_c per solve, one step_ab and one
+    # step_c per PCG iteration
+    solves = 20 * case.cfg.num_subiter
+    pcg = {"step_init": solves, "step_ab": sum(iters), "step_c": sum(iters) + solves}
+    require(all(launches.get(k, 0) == v for k, v in pcg.items()), f"expected PCG kernel launches {pcg}")
 
     g = case.grid
     div = stencil.divergence(state.U, state.V, g.dx, g.dy)[1:-1, 1:-1]
@@ -674,6 +868,7 @@ def above_tail_levels(shape) -> int:
 
 
 def bench_phase(device, g, cfg, vf0) -> dict:
+    """20 steps of the bench configuration; returns the launch counts."""
     from fluidsolver_tpu_torch.core import sync
     from fluidsolver_tpu_torch.ops import stencil
     from fluidsolver_tpu_torch.poisson import _kernels
@@ -704,14 +899,20 @@ def bench_phase(device, g, cfg, vf0) -> dict:
     for name in REPLACES:
         require(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
     n_above = above_tail_levels(g.shape_center)
-    cycles = sum(iters) + n_steps * cfg.num_subiter
+    solves = n_steps * cfg.num_subiter
+    cycles = sum(iters) + solves
     expected = {"elvira": n_steps, "curvature": n_steps, "overlap": n_steps,
                 "fused_rap": n_above * n_steps, "tail_setup": n_steps,
-                "tail_cycle": cycles, "fused_smooth": 2 * n_above * cycles}
+                "tail_cycle": cycles, "fused_smooth": 2 * n_above * cycles,
+                # one step_ab per PCG iteration, one step_init and one
+                # init-form step_c per solve, one fused_momentum per subiteration
+                "step_ab": sum(iters), "step_c": sum(iters) + solves, "step_init": solves,
+                "fused_momentum": solves}
     log(f"  expected launches: {expected}")
-    require(all(launches.get(k) == v for k, v in expected.items()),
-            "the launch counts differ from one VOF kernel each, one hierarchy and one V-cycle "
-            "per PCG iteration and solve per step")
+    require(all(launches.get(k, 0) == v for k, v in expected.items()),
+            "the launch counts differ from one VOF kernel each, one hierarchy per step, one V-cycle, "
+            "step_ab and step_c per PCG iteration, and one step_init, step_c, V-cycle and "
+            "fused_momentum per solve")
 
     vf = state.vf[1:-1, 1:-1]
     finite = all(bool(torch.isfinite(t).all()) for t in
@@ -719,9 +920,10 @@ def bench_phase(device, g, cfg, vf0) -> dict:
     div = stencil.divergence(state.flow.U, state.flow.V, g.dx, g.dy)[1:-1, 1:-1]
     drift = (float(vf.double().sum()) - vol0) / vol0
     vf_min, vf_max = float(vf.min()), float(vf.max())
-    log(f"  ms/step (CUDA events; median of steps 4-20): {statistics.median(ms[3:]):.4f}; "
+    median = statistics.median(ms[3:])
+    log(f"  ms/step (CUDA events; median of steps 4-20): {median:.4f}; "
         f"all steps: {[round(v, 3) for v in ms]}")
-    log(f"  p_iter per step: {iters}")
+    log(f"  p_iter per step: {iters} (sum {sum(iters)})")
     log(f"  host syncs per step: {syncs}")
     log(f"  vof_vol_error per step: {['%.3e' % e for e in errs]}")
     log(f"  vf in [{vf_min:.9f}, {vf_max:.9f}]; relative drift of sum(vf) over 20 steps {drift:.3e}; "
@@ -744,13 +946,16 @@ def bench_phase(device, g, cfg, vf0) -> dict:
     vof_kernels = sum(ours[k][0] for k in ("elvira", "curvature", "overlap"))
     log(f"  3 profiled steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
         f"idle share {1 - busy / wall_us:.3f}")
+    log(f"    fused PCG kernels {sum(ours[k][0] for k in FUSED[:3]) / 1e3:.4f} ms "
+        f"({sum(ours[k][1] for k in FUSED[:3])} launches); fused momentum "
+        f"{ours['fused_momentum'][0] / 1e3:.4f} ms ({ours['fused_momentum'][1]} launches)")
     log(f"    VOF kernels {vof_kernels / 1e3:.4f} ms; rest of the VOF stage "
         f"{(vof_total - vof_kernels) / 1e3:.4f} ms; pressure solves (with the hierarchy) "
         f"{pressure_total / 1e3:.4f} ms; other work {(busy - vof_total - pressure_total) / 1e3:.4f} ms")
     log("    device time by kernel (ms, launches):")
     for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"    {t / 1e3:9.4f}  {c:5d}  {n}")
-    return {"launches": launches}
+    return launches
 
 
 def main() -> int:
@@ -790,6 +995,9 @@ def main() -> int:
         phase = "3b VOF kernels vs twins"
         log("phase 3b: VOF kernels against their twins on the card")
         times.update(vof_kernel_phase(device, errors, vf_bench, g_bench))
+        phase = "3c fused kernels vs twins"
+        log("phase 3c: the fused PCG iteration and momentum kernels against their twins on the card")
+        times.update(fused_kernel_phase(device, errors))
         for k, (tk, tt, tb, by) in times.items():
             log(f"  {k}: kernel {tk:.4f} ms, twin {tt:.4f} ms, bound {tb:.4f} ms ({by}) "
                 "(f32, main-path shape)")
@@ -806,7 +1014,7 @@ def main() -> int:
         full_size_phase(device)
         phase = "6 bench"
         log("phase 6: two-phase bench configuration 1024^2 f32, 20 steps on the card")
-        launches = bench_phase(device, g_bench, cfg_bench, vf_bench)["launches"]
+        launches = bench_phase(device, g_bench, cfg_bench, vf_bench)
     except Exception as exc:  # report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         import traceback
@@ -815,7 +1023,7 @@ def main() -> int:
         return 1
     kernels = [{
         "name": k, "route": "cuda", "source": REPLACES[k][0], "replaces": REPLACES[k][1],
-        "launches": launches.get(k, 0), "max_abs_err": errors.max_abs[k],
+        "launches": launches[k], "max_abs_err": errors.max_abs[k],
         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": times[k][2], "bound_by": times[k][3],
         "library_ms": None,
     } for k in REPLACES]

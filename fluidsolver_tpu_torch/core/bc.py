@@ -9,9 +9,9 @@ tensors (the coordinate along the side and the time as a 0-d tensor).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Union
 
-import numpy as np
 import torch
 
 from fluidsolver_tpu_torch.core.grid import Grid
@@ -19,12 +19,21 @@ from fluidsolver_tpu_torch.core.grid import Grid
 BCValue = Union[float, Callable]
 
 
-def _eval(value: BCValue, coords: np.ndarray, t, like: torch.Tensor):
+@functools.lru_cache(maxsize=64)
+def _coords(grid: Grid, name: str, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The grid's coordinate array ``name`` ("x", "xm", "y" or "ym") as a
+    tensor, copied from the host once per grid, dtype and device (the
+    last 64 kept). Callers share it and must not write to it."""
+    return torch.as_tensor(getattr(grid, name), dtype=dtype, device=device)
+
+
+def _eval(value: BCValue, grid: Grid, coords: str, t, like: torch.Tensor):
     """A constant or function-valued BC evaluated along one side. A constant
     is filled on the device (no host copy); a callable gets the side's
-    coordinates as a tensor of ``like``'s dtype and device."""
+    coordinates ``grid.<coords>`` as a tensor of ``like``'s dtype and device
+    (cached, so a step copies nothing from the host) and the time."""
     if callable(value):
-        return value(torch.as_tensor(coords, dtype=like.dtype, device=like.device),
+        return value(_coords(grid, coords, like.dtype, like.device),
                      torch.as_tensor(t, dtype=like.dtype, device=like.device))
     return torch.full_like(like, value)
 
@@ -74,8 +83,8 @@ def apply_velocity_bcs(U: torch.Tensor, V: torch.Tensor, grid: Grid, bcs: FlowBC
 
     b = bcs.left
     if isinstance(b, Dirichlet):
-        ubc = _eval(b.u, grid.ym, t, U[0, :])
-        vbc = _eval(b.v, grid.y, t, V[0, :])
+        ubc = _eval(b.u, grid, "ym", t, U[0, :])
+        vbc = _eval(b.v, grid, "y", t, V[0, :])
         U[0, :] = ubc
         U[1, :] = ubc
         V[0, :] = 2.0 * vbc - V[1, :]
@@ -92,8 +101,8 @@ def apply_velocity_bcs(U: torch.Tensor, V: torch.Tensor, grid: Grid, bcs: FlowBC
 
     b = bcs.right
     if isinstance(b, Dirichlet):
-        ubc = _eval(b.u, grid.ym, t, U[0, :])
-        vbc = _eval(b.v, grid.y, t, V[0, :])
+        ubc = _eval(b.u, grid, "ym", t, U[0, :])
+        vbc = _eval(b.v, grid, "y", t, V[0, :])
         U[nx + 1, :] = ubc
         U[nx + 2, :] = ubc
         V[nx + 1, :] = 2.0 * vbc - V[nx, :]
@@ -116,8 +125,8 @@ def apply_velocity_bcs(U: torch.Tensor, V: torch.Tensor, grid: Grid, bcs: FlowBC
 
     b = bcs.bottom
     if isinstance(b, Dirichlet):
-        ubc = _eval(b.u, grid.x, t, U[:, 0])
-        vbc = _eval(b.v, grid.xm, t, V[:, 0])
+        ubc = _eval(b.u, grid, "x", t, U[:, 0])
+        vbc = _eval(b.v, grid, "xm", t, V[:, 0])
         U[:, 0] = 2.0 * ubc - U[:, 1]
         V[:, 0] = vbc
         V[:, 1] = vbc
@@ -134,8 +143,8 @@ def apply_velocity_bcs(U: torch.Tensor, V: torch.Tensor, grid: Grid, bcs: FlowBC
 
     b = bcs.top
     if isinstance(b, Dirichlet):
-        ubc = _eval(b.u, grid.x, t, U[:, 0])
-        vbc = _eval(b.v, grid.xm, t, V[:, 0])
+        ubc = _eval(b.u, grid, "x", t, U[:, 0])
+        vbc = _eval(b.v, grid, "xm", t, V[:, 0])
         U[:, ny + 1] = 2.0 * ubc - U[:, ny]
         V[:, ny + 1] = vbc
         V[:, ny + 2] = vbc

@@ -1,6 +1,7 @@
 """Build, load and bind the CUDA kernels of ``fluidsolver_tpu_torch/csrc``.
 
-The sources (the BoxMG kernels and the VOF kernels) are compiled with
+The sources (the BoxMG kernels, the fused PCG iteration, the fused
+momentum stage and the VOF kernels) are compiled with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
 at first use, into
 ``fluidsolver_tpu_torch/_build/`` (named by a hash of the sources and the
@@ -28,8 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu", "elvira.cu", "curvature.cu",
-           "overlap.cu")
+SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu", "cg.cu", "momentum.cu", "elvira.cu",
+           "curvature.cu", "overlap.cu")
 HEADERS = ("boxmg_device.cuh", "vof_device.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -39,6 +40,7 @@ launches: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # dtype, ncoef, op, N, M, out, stream
     "fs_fused_rap": (_I, _I, _P, _I, _I, _P, _P),
@@ -51,6 +53,15 @@ _SIGNATURES = {
     # dtype, ncoef0, op0, buf, b, x_out, scratch, N, M, n_levels, n_pre,
     # n_post, stream
     "fs_tail_cycle": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dtype, op, x, r, p, rz, N, M, x_out, r_out, Ap, part, scal, stream
+    "fs_step_ab": (_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
+    # dtype, r, z_raw, p, rz_prev, sum_r, singular, n, z_out, p_out, part,
+    # scal, stream
+    "fs_step_c": (_I, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P),
+    # dtype, op, b, x0, singular, N, M, x_out, r_out, part, scal, stream
+    "fs_step_init": (_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # dtype, in (12), dt, out (4), Nc, M, dx, dy, rho_eps, gx, gy, stream
+    "fs_fused_momentum": (_I, _P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _P),
     # dtype, vf, N, M, dx, dy, lo, hi, out (3 planes), valid, stream
     "fs_elvira": (_I, _P, _I, _I, _D, _D, _D, _D, _P, _P, _P),
     # dtype, nx, ny, d, valid, N, M, dx, dy, out, stream

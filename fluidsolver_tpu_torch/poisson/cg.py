@@ -8,6 +8,11 @@ are kept orthogonal to the constant nullspace by mean subtraction.
 
 The JAX package runs the loop as ``lax.while_loop``; here it is a Python
 loop whose test reads one device scalar per iteration (``core.sync.read``).
+
+The work of an iteration outside the preconditioner runs as kernels 5-7
+(``poisson/cuda_cg.py``): ``step_init`` and ``step_c``'s init form before
+the loop, ``step_ab`` and ``step_c`` in it, as the JAX package's fused
+branch (``FS_PALLAS_CG``) has them. On CPU tensors they run their twins.
 """
 
 from __future__ import annotations
@@ -17,12 +22,8 @@ from typing import Optional
 import torch
 
 from fluidsolver_tpu_torch.core import sync
-from fluidsolver_tpu_torch.poisson import boxmg
-from fluidsolver_tpu_torch.poisson.linsys import StencilOp, apply_op
-
-
-def _dot(a, b):
-    return torch.sum(a * b)
+from fluidsolver_tpu_torch.poisson import boxmg, cuda_cg
+from fluidsolver_tpu_torch.poisson.linsys import StencilOp
 
 
 def build_precond_levels(op: StencilOp, precond: str = "boxmg") -> list:
@@ -55,7 +56,11 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
     ||b - A x0|| >= ||b||). The loop stops at ``tol``, at ``max_iter``, on a
     stagnation window (no 0.01% improvement for STAG_WINDOW iterations),
     or on a breakdown (non-positive pAp or a non-finite value), and returns
-    the best iterate seen."""
+    the best iterate seen.
+
+    The JAX package reaches its fused init (``step_init``) only under its
+    TPU band layout, which is not ported; here every solve starts with
+    ``step_init``."""
     M_inv, levels = make_m_inv(op, precond, levels=levels, n_pre=n_pre, n_post=n_post)
 
     def project(v):
@@ -65,23 +70,11 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
     # once the residual has stalled for STAG_WINDOW iterations
     STAG_WINDOW = 25 if torch.finfo(b.dtype).bits <= 32 else 100
 
-    b = project(b)
-    bb = _dot(b, b)
+    x, r, bb, rr, sum_r = cuda_cg.step_init(op, b, None if x0 is None else x0.to(b.dtype), singular)
     b_norm = torch.sqrt(bb)
     safe_b_norm = torch.where(b_norm > 0.0, b_norm, torch.ones_like(b_norm))
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x0 = project(x0.to(b.dtype))
-        r_ws = b - apply_op(op, x0)
-        good = _dot(r_ws, r_ws) < bb
-        x = torch.where(good, x0, torch.zeros_like(b))
-        r = torch.where(good, r_ws, b)
-    rel = torch.sqrt(_dot(r, r)) / safe_b_norm
-    z = project(M_inv(r))
-    p = z
-    rz = _dot(r, z)
+    rel = torch.sqrt(rr) / safe_b_norm
+    _, p, rz = cuda_cg.step_c(r, M_inv(r), None, torch.ones_like(bb), singular, sum_r=sum_r)
     best = rel
     since = torch.zeros((), dtype=torch.int32, device=b.device)
     x_best = x
@@ -90,22 +83,14 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
     while k < max_iter:
         if not sync.read((rel > tol) & (b_norm > 0.0) & (since < STAG_WINDOW)):
             break
-        Ap = apply_op(op, p)
-        pAp = _dot(p, Ap)
-        alpha = rz / torch.where(pAp != 0.0, pAp, torch.ones_like(pAp))
-        x_new = x + alpha * p
-        r_new = r - alpha * Ap
-        z_new = project(M_inv(r_new))
-        rz_new = _dot(r_new, z_new)
-        beta = rz_new / torch.where(rz != 0.0, rz, torch.ones_like(rz))
-        p_new = z_new + beta * p
-        rel_new = torch.sqrt(_dot(r_new, r_new)) / safe_b_norm
+        x_new, r_new, pAp, rr, sum_r = cuda_cg.step_ab(op, x, r, p, rz)
+        _, p_new, rz_new = cuda_cg.step_c(r_new, M_inv(r_new), p, rz, singular, sum_r=sum_r)
+        rel_new = torch.sqrt(rr) / safe_b_norm
         # breakdown guard: reject the update, keep the last good iterate and
         # trip the stagnation exit
         ok = (pAp > 0.0) & torch.isfinite(rel_new) & torch.isfinite(rz_new)
         x = torch.where(ok, x_new, x)
         r = torch.where(ok, r_new, r)
-        z = torch.where(ok, z_new, z)
         p = torch.where(ok, p_new, p)
         rz = torch.where(ok, rz_new, rz)
         rel = torch.where(ok, rel_new, rel)
@@ -115,4 +100,4 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
                             torch.where(ok, since + 1, torch.full_like(since, STAG_WINDOW)))
         x_best = torch.where(rel <= best, x, x_best)
         k += 1
-    return (project(x_best) if singular else x_best), best, k
+    return project(x_best), best, k

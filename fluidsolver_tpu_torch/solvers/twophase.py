@@ -17,6 +17,11 @@ tension). ``pressure_precond_refresh`` "solve" builds the hierarchy inside
 every solve; "step" builds it once per step from subiteration 0's
 transported densities and reuses it for the rest. Other settings raise.
 
+The step runs the reference's fused composition (its ``FS_PALLAS_CG`` and
+``FS_PALLAS_MOMENTUM``): the fused PCG iteration (kernels 5-7, in
+``poisson/cg.py``) and the fused momentum stage (kernel 8,
+``ops/cuda_momentum.py``).
+
 Host reads per step: ``dt > 0`` and each PCG iteration's exit test
 (``core.sync``); the VOF stage adds none. The VOF stage and the pressure
 solves run inside the profiler ranges ``VOF_RANGE`` and ``PRESSURE_RANGE``.
@@ -36,6 +41,7 @@ from torch.profiler import record_function
 from fluidsolver_tpu_torch.core import bc as bc_mod
 from fluidsolver_tpu_torch.core import fields, sync
 from fluidsolver_tpu_torch.core.grid import Grid
+from fluidsolver_tpu_torch.ops import cuda_momentum
 from fluidsolver_tpu_torch.ops import momentum as mom
 from fluidsolver_tpu_torch.ops import stencil
 from fluidsolver_tpu_torch.solvers import incomp
@@ -130,20 +136,15 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
         U = stencil.mid_time(fs.U, fs.U_old)
         V = stencil.mid_time(fs.V, fs.V_old)
 
-        # consistent density transport, then momentum (+ gravity)
-        drho_u, drho_v = mom.calc_drhodt(U, V, fs.rho_u_old, fs.rho_v_old, grid.dx, grid.dy, rho_eps)
-        rho_u, rho_v = mom.update_density(fs.rho_u_old, fs.rho_v_old, drho_u, drho_v, dt,
-                                          fs.rho_u, fs.rho_v)
+        # consistent density transport, then momentum (+ gravity) in one
+        # stage, which reads the densities' interior only: the Neumann ghost
+        # fill comes after it
+        rho_u, rho_v, U, V = cuda_momentum.fused_momentum(
+            U, V, fs.U_old, fs.V_old, fs.rho_u_old, fs.rho_v_old, fs.rho_u, fs.rho_v, fs.visc,
+            fs.p, fs.p_jump_u, fs.p_jump_v, dt, dx=grid.dx, dy=grid.dy, rho_eps=rho_eps, gx=gx,
+            gy=gy)
         rho_u = bc_mod.apply_neumann_scalar(rho_u)
         rho_v = bc_mod.apply_neumann_scalar(rho_v)
-        dmomU, dmomV = mom.calc_dmomdt(U, V, fs.rho_u_old, fs.rho_v_old, fs.visc, fs.p,
-                                       fs.p_jump_u, fs.p_jump_v, grid.dx, grid.dy, rho_eps)
-        if gx != 0.0:
-            dmomU = fields.add_interior(dmomU, rho_u[1:-1, 1:-1] * gx)
-        if gy != 0.0:
-            dmomV = fields.add_interior(dmomV, rho_v[1:-1, 1:-1] * gy)
-        U, V = mom.update_velocity(fs.U_old, fs.V_old, fs.rho_u_old, fs.rho_v_old,
-                                   rho_u, rho_v, dmomU, dmomV, dt, U, V)
         U, V = bc_mod.apply_velocity_bcs(U, V, grid, cfg.bcs, fs.t)
         if cfg.outflow_correction:
             _, _, mass_err = mom.inflow_outflow(U, rho_u)
