@@ -26,22 +26,36 @@ result line):
      so that its update stands far above the f32 bound; step_init cold,
      warm with a kept and with a rejected guess, singular or not; times at
      the main path's shapes;
+  3d. the red-black sweep kernel (rb_sweep) against its twin at every level
+     shape of the "mg" hierarchy of the 1026^2 and 1023 x 771 boxes, both
+     orders, from a zero and a random x: f64 at the CPU tests' 1e-12, f32 at
+     the relative 1e-5 (bitwise logged); times at 1026^2;
   4. lid_driven(n=256), f64, pressure_tol=1e-11, 3 steps: the GPU (kernels)
      against the CPU (twins);
   4b. the golden two-phase drop (64^2, 15 steps, f64, tol 1e-10): GPU
      against CPU and both against tests/goldens/two_phase_drop.npz; the GPU
      run must launch kernels 5-8;
+  4c. lid_driven(n=64), f64, tol 1e-11, 2 steps, GPU against CPU for every
+     pressure method (pcg, bicgstab, gmres, mgsolve) and preconditioner
+     (mg, boxmg, jacobi, none) and the direct solve; the "mg" runs must
+     launch rb_sweep;
   5. lid_driven(n=1024), f32, 20 steps: ms/step, PCG iterations, max |div|,
      host syncs per step, launch counts (the V-cycle and the PCG kernels),
      and the kernels seen by torch.profiler over make_step plus one step;
   6. the two-phase bench configuration (a drop in an inflow channel, 1024^2,
-     1000:1, 5 subiterations, refresh "step", f32), 20 steps: ms/step,
-     p_iter, host syncs, VOF volume error, vf bounds and volume drift,
-     max |div|, the exact launch counts of all eleven kernels, and a
+     1000:1, 5 subiterations, refresh "step", PCG + BoxMG, f32), 20 steps:
+     ms/step, p_iter, host syncs, VOF volume error, vf bounds and volume
+     drift, max |div|, the exact launch counts of its eleven kernels, and a
      profiler split of 3 steps (kernels, rest of the VOF stage, pressure
-     solve, other work, idle share).
+     solve, other work, idle share);
+  7. the same configuration on PCG + "mg" (the JAX package's default
+     preconditioner), 10 steps: the phase 6 report, the solves that stopped
+     at the iteration cap or above their tolerance, the exact launch counts
+     (rb_sweep: (PCG iterations + solves) x sweeps per V-cycle; kernels 5-8
+     and 10-12; no BoxMG kernel), and a profiler split of 2 steps.
 The second-to-last line is a JSON object with one entry per kernel (the
-launches from phase 6); the last line is {"ok": true, "device": {...}}.
+launches from phase 6, rb_sweep's from phase 7); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -82,10 +96,17 @@ REPLACES = {
                   "fluidsolver_tpu/poisson/pallas_cg.py:462"),
     "fused_momentum": ("fluidsolver_tpu_torch/csrc/momentum.cu",
                        "fluidsolver_tpu/ops/pallas_momentum.py:247"),
+    "rb_sweep": ("fluidsolver_tpu_torch/csrc/rb_sweep.cu",
+                 "fluidsolver_tpu/poisson/pallas_smoother.py:54"),
 }
 # the kernels of the reference's fused composition (its FS_PALLAS_CG and
 # FS_PALLAS_MOMENTUM), ported in one slice
 FUSED = ("step_ab", "step_c", "step_init", "fused_momentum")
+# the kernels of the BoxMG bench step (phase 6); rb_sweep runs on the "mg"
+# step (phase 7) instead of the four BoxMG kernels
+BOXMG = ("fused_rap", "fused_smooth", "tail_setup", "tail_cycle")
+BOXMG_STEP = tuple(k for k in REPLACES if k != "rb_sweep")
+MG_STEP = tuple(k for k in REPLACES if k not in BOXMG)
 # the names the kernels carry in a profiler trace
 TRACE_NAMES = {k: k + "_kernel" for k in REPLACES}
 F32_RTOL = 1e-5
@@ -654,6 +675,45 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
     return times
 
 
+# ---- phase 3d --------------------------------------------------------------
+def sweep_phase(device, errors: Errors) -> dict:
+    """rb_sweep against its twin at every level shape of the "mg" hierarchy
+    of a 1026^2 and a 1023 x 771 box, both orders, from a zero and a random
+    x. Returns name -> (kernel ms, twin ms, bound ms, bound by)."""
+    from fluidsolver_tpu_torch.poisson import cuda_smoother, mg
+
+    times = {}
+    for dtype, shape, main in ((torch.float64, (1026, 1026), True), (torch.float32, (1026, 1026), True),
+                               (torch.float64, (1023, 771), False), (torch.float32, (1023, 771), False)):
+        tag = f"{str(dtype)[6:]} {shape[0]}x{shape[1]}"
+        levels = mg.build_hierarchy(random_operator(*shape, seed=13, dtype=dtype, device=device))
+        bitwise, worst = True, 0.0
+        for lvl, op in enumerate(levels):
+            lshape = tuple(op.aC.shape)
+            b = random_field(lshape, 500 + lvl, dtype, device)
+            for x0 in (torch.zeros_like(b), random_field(lshape, 600 + lvl, dtype, device)):
+                for reverse in (False, True):
+                    got = cuda_smoother.rb_sweep_cuda(op, x0, b, reverse)
+                    want = cuda_smoother.rb_sweep_twin(op, x0, b, reverse)
+                    err = errors.compare("rb_sweep", [got], [want], dtype, 1e-12, 1e-12, main,
+                                         f"{tag} level {lshape} reverse={reverse}")
+                    worst = max(worst, err)
+                    bitwise = bitwise and torch.equal(got, want)
+        log(f"  {tag}: {len(levels)} levels, sides {[tuple(lv.aC.shape) for lv in levels]}: rb_sweep "
+            f"agrees (both orders, zero and random x); max|kernel - twin| {worst:.3e}, bitwise {bitwise}")
+        if main and dtype == torch.float32:
+            op = levels[0]
+            b, x0 = (random_field(shape, 700 + k, dtype, device) for k in range(2))
+            n = b.numel()
+            # 5 planes, b and x in, x out; 13 flops per point (A x - aC x:
+            # 6 products and 5 sums; b minus it; one division)
+            bnd = bound(8 * itemsize(dtype) * n, 13 * n, dtype)
+            times["rb_sweep"] = (
+                time_ms(lambda: cuda_smoother.rb_sweep_cuda(op, x0, b), 50, kernel=True),
+                time_ms(lambda: cuda_smoother.rb_sweep_twin(op, x0, b), 20), *bnd)
+    return times
+
+
 # ---- phase 4 ---------------------------------------------------------------
 def cross_check_phase(device) -> None:
     from fluidsolver_tpu_torch.cases import get_case
@@ -735,6 +795,47 @@ def two_phase_cross_check_phase(device) -> None:
     log(f"  p_iter per step: gpu {ig}, cpu {ic}")
     require(len(ig) == len(ic) == 15 and all(abs(a - b) <= 1 for a, b in zip(ig, ic)),
             "p_iter differs by more than 1")
+
+
+# ---- phase 4c --------------------------------------------------------------
+def solver_cross_check_phase(device) -> None:
+    """lid_driven(64), f64, 2 steps, GPU against CPU for every pressure
+    method and preconditioner and for the direct solve. Tol 1e-11 with a
+    cap of 2000 iterations, so that BiCGSTAB with a weak preconditioner
+    converges: stopped early, its iterates move with the order of the
+    sums. Its residual is not monotone, so there its count may move by 10%
+    (the step at which it first falls below tol); elsewhere by 1. The "mg"
+    runs on the card must launch rb_sweep."""
+    from fluidsolver_tpu_torch.cases import get_case
+    from fluidsolver_tpu_torch.poisson import _kernels
+    from fluidsolver_tpu_torch.solvers.state import state_to_numpy
+
+    combos = [(m, p) for m in ("pcg", "bicgstab", "gmres") for p in ("mg", "boxmg", "jacobi", "none")]
+    combos += [("mgsolve", "mg"), ("mgsolve", "boxmg"), ("pcg", "direct")]
+    for method, solver in combos:
+        case = get_case("lid_driven", n=64)
+        case.cfg = dataclasses.replace(case.cfg, pressure_tol=1e-11, pressure_max_iter=2000,
+                                       pressure_method=method, pressure_solver=solver)
+        runs = {}
+        for dev in (device, torch.device("cpu")):
+            _kernels.launches.clear()
+            state = case.make_state(torch.float64, dev)
+            step = case.make_step(torch.float64, dev)
+            iters = []
+            for _ in range(2):
+                state = step(state, case.t_end)
+                iters.append(int(state.p_iter))
+            runs[dev.type] = (state_to_numpy(state), iters, _kernels.launches.get("rb_sweep", 0))
+        (g, ig, sweeps), (c, ic, _) = runs["cuda"], runs["cpu"]
+        rel = max(float(np.abs(g[k] - c[k]).max() / np.abs(c[k]).max()) for k in ("U", "V", "p"))
+        slack = [max(1, i // 10) if (method == "bicgstab" and solver in ("jacobi", "none")) else 1
+                 for i in ic]
+        log(f"  {method} + {solver}: max over U, V, p of max|gpu - cpu| / max|cpu| = {rel:.3e}; "
+            f"p_iter gpu {ig}, cpu {ic}; rb_sweep launches on the card {sweeps}")
+        require(rel <= 1e-9, f"{method} + {solver}: gpu vs cpu {rel:.3e} > 1e-9")
+        require(all(abs(a - b) <= d for a, b, d in zip(ig, ic, slack)),
+                f"{method} + {solver}: p_iter differs by more than {slack}")
+        require((sweeps > 0) == (solver == "mg"), f"{method} + {solver}: {sweeps} rb_sweep launches")
 
 
 # ---- phase 5 ---------------------------------------------------------------
@@ -867,18 +968,19 @@ def above_tail_levels(shape) -> int:
         shape = ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
 
 
-def bench_phase(device, g, cfg, vf0) -> dict:
-    """20 steps of the bench configuration; returns the launch counts."""
+def drive_bench(device, g, cfg, vf0, n_steps: int):
+    """``n_steps`` steps of the two-phase configuration ``cfg`` in f32 from
+    the drop ``vf0``, each timed by CUDA events, with the launch counts set
+    to 0 just before the first step and read just after the last. Returns
+    (step, state, launches, ms, p_iter, host syncs, VOF errors) per step."""
     from fluidsolver_tpu_torch.core import sync
     from fluidsolver_tpu_torch.ops import stencil
     from fluidsolver_tpu_torch.poisson import _kernels
     from fluidsolver_tpu_torch.solvers import twophase
 
-    dtype = torch.float32
-    n_steps, t_end = 20, 1e9
-    state = twophase.init_two_phase_state(g, cfg, vf0, dtype, device)
+    state = twophase.init_two_phase_state(g, cfg, vf0, torch.float32, device)
     vol0 = float(state.vf[1:-1, 1:-1].double().sum())
-    step = twophase.make_step(g, cfg, dtype, device)
+    step = twophase.make_step(g, cfg, torch.float32, device)
     torch.cuda.synchronize()
 
     _kernels.launches.clear()
@@ -887,7 +989,7 @@ def bench_phase(device, g, cfg, vf0) -> dict:
         s0 = sync.count
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        state = step(state, t_end)
+        state = step(state, 1e9)
         end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
@@ -895,8 +997,63 @@ def bench_phase(device, g, cfg, vf0) -> dict:
         iters.append(int(state.flow.p_iter))
         errs.append(float(state.vof_vol_error))
     launches = dict(_kernels.launches)
-    log(f"  launches in 20 steps: {launches}")
-    for name in REPLACES:
+
+    vf = state.vf[1:-1, 1:-1]
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (state.flow.U, state.flow.V, state.flow.p, state.vf, state.curv))
+    div = stencil.divergence(state.flow.U, state.flow.V, g.dx, g.dy)[1:-1, 1:-1]
+    drift = (float(vf.double().sum()) - vol0) / vol0
+    vf_min, vf_max = float(vf.min()), float(vf.max())
+    log(f"  launches in {n_steps} steps: {launches}")
+    log(f"  ms/step (CUDA events; median of steps 4-{n_steps}): {statistics.median(ms[3:]):.4f}; "
+        f"all steps: {[round(v, 3) for v in ms]}")
+    log(f"  p_iter per step: {iters} (sum {sum(iters)})")
+    log(f"  host syncs per step: {syncs}")
+    log(f"  vof_vol_error per step: {['%.3e' % e for e in errs]}")
+    log(f"  vf in [{vf_min:.9f}, {vf_max:.9f}]; relative drift of sum(vf) over {n_steps} steps {drift:.3e}; "
+        f"max|div| {float(div.abs().max()):.3e}; t = {float(state.flow.t):.6f}")
+    require(finite, "non-finite U, V, p, vf or curv")
+    require(all(math.isfinite(e) for e in errs), "vof_vol_error is not finite")
+    require(vf_min >= -1e-5 and vf_max <= 1.0 + 1e-5, "vf left [-1e-5, 1 + 1e-5]")
+    require(all(1 + i <= s <= 1 + i + cfg.num_subiter for s, i in zip(syncs, iters)),
+            "host syncs per step should be 1 (dt > 0) + one PCG exit test per iteration and solve")
+    return step, state, launches, iters
+
+
+def profile_bench(step, state, n: int, kernels) -> None:
+    """Profile ``n`` more steps: the wall and device time, the idle share, the
+    device time of ``kernels``, of the VOF stage and the pressure solves, and
+    the device time by kernel."""
+    from fluidsolver_tpu_torch.solvers import twophase
+
+    holder = [state]
+
+    def one():
+        holder[0] = step(holder[0], 1e9)
+
+    by_name, busy, wall_us, ranges = profile_steps(one, n)
+    ours = {k: by_name.get(k, (0.0, 0)) for k in kernels}
+    vof_total = ranges.get(twophase.VOF_RANGE, 0.0)
+    pressure_total = ranges.get(twophase.PRESSURE_RANGE, 0.0)
+    vof_kernels = sum(ours[k][0] for k in ("elvira", "curvature", "overlap"))
+    log(f"  {n} profiled steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+        f"idle share {1 - busy / wall_us:.3f}")
+    log(f"    fused PCG kernels {sum(ours[k][0] for k in FUSED[:3]) / 1e3:.4f} ms "
+        f"({sum(ours[k][1] for k in FUSED[:3])} launches); fused momentum "
+        f"{ours['fused_momentum'][0] / 1e3:.4f} ms ({ours['fused_momentum'][1]} launches)")
+    log(f"    VOF kernels {vof_kernels / 1e3:.4f} ms; rest of the VOF stage "
+        f"{(vof_total - vof_kernels) / 1e3:.4f} ms; pressure solves (with the hierarchy) "
+        f"{pressure_total / 1e3:.4f} ms; other work {(busy - vof_total - pressure_total) / 1e3:.4f} ms")
+    log("    device time by kernel (ms, launches):")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        log(f"    {t / 1e3:9.4f}  {c:5d}  {name}")
+
+
+def bench_phase(device, g, cfg, vf0) -> dict:
+    """20 steps of the bench configuration (BoxMG); returns the launch counts."""
+    n_steps = 20
+    step, state, launches, iters = drive_bench(device, g, cfg, vf0, n_steps)
+    for name in BOXMG_STEP:
         require(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
     n_above = above_tail_levels(g.shape_center)
     solves = n_steps * cfg.num_subiter
@@ -907,54 +1064,63 @@ def bench_phase(device, g, cfg, vf0) -> dict:
                 # one step_ab per PCG iteration, one step_init and one
                 # init-form step_c per solve, one fused_momentum per subiteration
                 "step_ab": sum(iters), "step_c": sum(iters) + solves, "step_init": solves,
-                "fused_momentum": solves}
+                "fused_momentum": solves, "rb_sweep": 0}
     log(f"  expected launches: {expected}")
     require(all(launches.get(k, 0) == v for k, v in expected.items()),
             "the launch counts differ from one VOF kernel each, one hierarchy per step, one V-cycle, "
             "step_ab and step_c per PCG iteration, and one step_init, step_c, V-cycle and "
             "fused_momentum per solve")
+    profile_bench(step, state, 3, BOXMG_STEP)
+    return launches
 
-    vf = state.vf[1:-1, 1:-1]
-    finite = all(bool(torch.isfinite(t).all()) for t in
-                 (state.flow.U, state.flow.V, state.flow.p, state.vf, state.curv))
-    div = stencil.divergence(state.flow.U, state.flow.V, g.dx, g.dy)[1:-1, 1:-1]
-    drift = (float(vf.double().sum()) - vol0) / vol0
-    vf_min, vf_max = float(vf.min()), float(vf.max())
-    median = statistics.median(ms[3:])
-    log(f"  ms/step (CUDA events; median of steps 4-20): {median:.4f}; "
-        f"all steps: {[round(v, 3) for v in ms]}")
-    log(f"  p_iter per step: {iters} (sum {sum(iters)})")
-    log(f"  host syncs per step: {syncs}")
-    log(f"  vof_vol_error per step: {['%.3e' % e for e in errs]}")
-    log(f"  vf in [{vf_min:.9f}, {vf_max:.9f}]; relative drift of sum(vf) over 20 steps {drift:.3e}; "
-        f"max|div| {float(div.abs().max()):.3e}; t = {float(state.flow.t):.6f}")
-    require(finite, "non-finite U, V, p, vf or curv")
-    require(all(math.isfinite(e) for e in errs), "vof_vol_error is not finite")
-    require(vf_min >= -1e-5 and vf_max <= 1.0 + 1e-5, "vf left [-1e-5, 1 + 1e-5]")
-    require(all(1 + i <= s <= 1 + i + cfg.num_subiter for s, i in zip(syncs, iters)),
-            "host syncs per step should be 1 (dt > 0) + one PCG exit test per iteration and solve")
 
-    holder = [state]
+# ---- phase 7 ---------------------------------------------------------------
+def mg_bench_phase(device, g, cfg, vf0) -> dict:
+    """10 steps of the bench configuration on PCG + "mg"; returns the launch
+    counts. Every pressure solve is recorded (iterations, residual, its
+    tolerance) to report the solves that stopped at the iteration cap or on
+    the stagnation window; the residuals are read after the steps."""
+    from fluidsolver_tpu_torch.poisson import mg
+    from fluidsolver_tpu_torch.poisson.linsys import StencilOp
+    from fluidsolver_tpu_torch.solvers import incomp
 
-    def one():
-        holder[0] = step(holder[0], t_end)
+    n_steps = 10
+    meta = torch.empty(g.shape_center, device="meta")
+    levels = mg.build_hierarchy(StencilOp(*(meta,) * 5))
+    sweeps = (len(levels) - 1) * (cfg.mg_pre + cfg.mg_post) + mg.COARSE_SWEEPS
+    log(f"  mg hierarchy: {len(levels)} levels, sides {[lv.aC.shape[0] for lv in levels]}; "
+        f"{sweeps} sweeps per V({cfg.mg_pre},{cfg.mg_post}) cycle")
 
-    by_name, busy, wall_us, ranges = profile_steps(one, 3)
-    ours = {k: by_name.get(k, (0.0, 0)) for k in REPLACES}
-    vof_total = ranges.get(twophase.VOF_RANGE, 0.0)
-    pressure_total = ranges.get(twophase.PRESSURE_RANGE, 0.0)
-    vof_kernels = sum(ours[k][0] for k in ("elvira", "curvature", "overlap"))
-    log(f"  3 profiled steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
-        f"idle share {1 - busy / wall_us:.3f}")
-    log(f"    fused PCG kernels {sum(ours[k][0] for k in FUSED[:3]) / 1e3:.4f} ms "
-        f"({sum(ours[k][1] for k in FUSED[:3])} launches); fused momentum "
-        f"{ours['fused_momentum'][0] / 1e3:.4f} ms ({ours['fused_momentum'][1]} launches)")
-    log(f"    VOF kernels {vof_kernels / 1e3:.4f} ms; rest of the VOF stage "
-        f"{(vof_total - vof_kernels) / 1e3:.4f} ms; pressure solves (with the hierarchy) "
-        f"{pressure_total / 1e3:.4f} ms; other work {(busy - vof_total - pressure_total) / 1e3:.4f} ms")
-    log("    device time by kernel (ms, launches):")
-    for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
-        log(f"    {t / 1e3:9.4f}  {c:5d}  {n}")
+    solves = []
+    solve = incomp.pressure_solve
+
+    def recording(*args, tol=None, **kw):
+        out = solve(*args, tol=tol, **kw)
+        solves.append((tol, out[2], out[1]))
+        return out
+
+    incomp.pressure_solve = recording
+    try:
+        step, state, launches, iters = drive_bench(device, g, cfg, vf0, n_steps)
+        n_solves = len(solves)
+        capped = [(k, it, float(r)) for k, (tol, it, r) in enumerate(solves) if it >= cfg.pressure_max_iter]
+        stalled = [(k, it, float(r)) for k, (tol, it, r) in enumerate(solves)
+                   if it < cfg.pressure_max_iter and float(r) > tol]
+    finally:
+        incomp.pressure_solve = solve
+    log(f"  solves (index, iterations, p_res) at the cap of {cfg.pressure_max_iter}: {capped}")
+    log(f"  solves stopped above their tolerance (stagnation window): {stalled}")
+    require(n_solves == n_steps * cfg.num_subiter, f"{n_solves} pressure solves in {n_steps} steps")
+    cycles = sum(iters) + n_solves
+    expected = {"rb_sweep": cycles * sweeps, "elvira": n_steps, "curvature": n_steps, "overlap": n_steps,
+                "step_ab": sum(iters), "step_c": cycles, "step_init": n_solves, "fused_momentum": n_solves,
+                **{k: 0 for k in BOXMG}}
+    log(f"  expected launches: {expected}")
+    require(all(launches.get(k, 0) == v for k, v in expected.items()),
+            f"the launch counts differ from {sweeps} rb_sweep launches per V-cycle (one per PCG "
+            "iteration and one per solve), the PCG and momentum kernels per iteration and solve, "
+            "one VOF kernel each per step and no BoxMG kernel")
+    profile_bench(step, state, 2, MG_STEP)
     return launches
 
 
@@ -998,6 +1164,9 @@ def main() -> int:
         phase = "3c fused kernels vs twins"
         log("phase 3c: the fused PCG iteration and momentum kernels against their twins on the card")
         times.update(fused_kernel_phase(device, errors))
+        phase = "3d rb_sweep vs twin"
+        log("phase 3d: the red-black sweep kernel against its twin on the card")
+        times.update(sweep_phase(device, errors))
         for k, (tk, tt, tb, by) in times.items():
             log(f"  {k}: kernel {tk:.4f} ms, twin {tt:.4f} ms, bound {tb:.4f} ms ({by}) "
                 "(f32, main-path shape)")
@@ -1008,6 +1177,9 @@ def main() -> int:
         phase = "4b two-phase cross-check"
         log("phase 4b: golden two-phase drop 64^2 f64 tol 1e-10, 15 steps, GPU vs CPU vs golden")
         two_phase_cross_check_phase(device)
+        phase = "4c pressure solvers cross-check"
+        log("phase 4c: lid_driven(64) f64 tol 1e-11, 2 steps, every pressure method and solver, GPU vs CPU")
+        solver_cross_check_phase(device)
 
         phase = "5 full size"
         log("phase 5: lid_driven(1024) f32, 20 steps on the card")
@@ -1015,6 +1187,10 @@ def main() -> int:
         phase = "6 bench"
         log("phase 6: two-phase bench configuration 1024^2 f32, 20 steps on the card")
         launches = bench_phase(device, g_bench, cfg_bench, vf_bench)
+        phase = "7 mg bench"
+        log('phase 7: the bench configuration on PCG + "mg", 1024^2 f32, 10 steps on the card')
+        launches["rb_sweep"] = mg_bench_phase(
+            device, g_bench, dataclasses.replace(cfg_bench, pressure_solver="mg"), vf_bench)["rb_sweep"]
     except Exception as exc:  # report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         import traceback

@@ -1,7 +1,8 @@
 """Build, load and bind the CUDA kernels of ``fluidsolver_tpu_torch/csrc``.
 
-The sources (the BoxMG kernels, the fused PCG iteration, the fused
-momentum stage and the VOF kernels) are compiled with
+The sources (the BoxMG kernels, the geometric multigrid's red-black
+sweep, the fused PCG iteration, the fused momentum stage and the VOF
+kernels) are compiled with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
 at first use, into
 ``fluidsolver_tpu_torch/_build/`` (named by a hash of the sources and the
@@ -30,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu", "cg.cu", "momentum.cu", "elvira.cu",
-           "curvature.cu", "overlap.cu")
+           "curvature.cu", "overlap.cu", "rb_sweep.cu")
 HEADERS = ("boxmg_device.cuh", "vof_device.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -69,6 +70,8 @@ _SIGNATURES = {
     # dtype, slots_x, slots_y, lane_i, lane_j, vf, valid, nx, ny, d, N, M, m,
     # dx, dy, lo, overlap, area, stream
     "fs_overlap": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P, _P, _P),
+    # dtype, op, b, x, x_out, N, M, red_first, stream
+    "fs_rb_sweep": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

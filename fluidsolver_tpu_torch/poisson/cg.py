@@ -1,6 +1,8 @@
 """Preconditioned conjugate gradients for the pressure Poisson solve: port
-of the plain path of ``fluidsolver_tpu.poisson.cg`` with the BoxMG V-cycle
-preconditioner.
+of ``fluidsolver_tpu.poisson.cg``. The preconditioner is one V-cycle of the
+geometric multigrid ("mg", ``poisson/mg.py``, the HYPRE PCG + PFMG analog
+and the default) or of BoxMG ("boxmg", ``poisson/boxmg.py``), the diagonal
+("jacobi") or none.
 
 Convergence criterion: relative two-norm ||r||/||b|| < tol. For the
 singular all-Neumann system the preconditioned direction and the iterate
@@ -22,32 +24,44 @@ from typing import Optional
 import torch
 
 from fluidsolver_tpu_torch.core import sync
-from fluidsolver_tpu_torch.poisson import boxmg, cuda_cg
+from fluidsolver_tpu_torch.poisson import boxmg, cuda_cg, mg
 from fluidsolver_tpu_torch.poisson.linsys import StencilOp
 
-
-def build_precond_levels(op: StencilOp, precond: str = "boxmg") -> list:
-    """The multigrid hierarchy for ``precond`` (only "boxmg" is ported)."""
-    if precond != "boxmg":
-        raise ValueError(f"preconditioner {precond!r} is not ported; use 'boxmg'")
-    return boxmg.build_hierarchy(op)
+_MG = {"mg": mg, "boxmg": boxmg}
 
 
-def make_m_inv(op: StencilOp, precond: str = "boxmg", levels=None,
-               n_pre: int = 1, n_post: int = 1):
-    """``(M_inv, levels)``: one V-cycle ``r -> z`` and its hierarchy (built
-    here unless given)."""
-    if levels is None:
-        levels = build_precond_levels(op, precond)
+def build_precond_levels(op: StencilOp, precond: str):
+    """The multigrid hierarchy for ``precond`` "mg" or "boxmg"; None for
+    the others. Solvers build it once and reuse it over several solves."""
+    return _MG[precond].build_hierarchy(op) if precond in _MG else None
 
-    def M_inv(r):
-        return boxmg.v_cycle(levels, r, n_pre=n_pre, n_post=n_post)
 
+def make_m_inv(op: StencilOp, precond: str, levels=None, n_pre: int = 1, n_post: int = 1):
+    """``(M_inv, levels)``: the preconditioner ``r -> z`` for ``precond`` in
+    {"mg", "boxmg", "jacobi", "none"} and its hierarchy (built here for
+    "mg"/"boxmg" unless given, else None). Shared by PCG and
+    ``poisson/krylov.py``."""
+    if precond in _MG:
+        if levels is None:
+            levels = build_precond_levels(op, precond)
+
+        def M_inv(r):
+            return _MG[precond].v_cycle(levels, r, n_pre=n_pre, n_post=n_post)
+    elif precond == "jacobi":
+        aC_safe = torch.where(op.aC == 0.0, torch.ones_like(op.aC), op.aC)
+
+        def M_inv(r):
+            return r / aC_safe
+    elif precond == "none":
+        def M_inv(r):
+            return r
+    else:
+        raise ValueError(f"unknown preconditioner: {precond}")
     return M_inv, levels
 
 
 def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singular: bool,
-              precond: str = "boxmg", n_pre: int = 1, n_post: int = 1,
+              precond: str = "mg", n_pre: int = 1, n_post: int = 1,
               x0: Optional[torch.Tensor] = None, levels=None):
     """Solve A x = b from zero (or the warm start ``x0``).
 
@@ -61,7 +75,7 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
     The JAX package reaches its fused init (``step_init``) only under its
     TPU band layout, which is not ported; here every solve starts with
     ``step_init``."""
-    M_inv, levels = make_m_inv(op, precond, levels=levels, n_pre=n_pre, n_post=n_post)
+    M_inv, _ = make_m_inv(op, precond, levels=levels, n_pre=n_pre, n_post=n_post)
 
     def project(v):
         return v - torch.mean(v) if singular else v

@@ -2,8 +2,9 @@
 
 The fields, their defaults and their meaning are those of the JAX package's
 ``SolverConfig``; ``config_from_jax`` converts one of those into this one.
-The port's single-phase step supports the subset that ``solvers/incomp.py``
-checks for (PCG with the BoxMG preconditioner, no immersed boundary).
+The port's steps support the subset that ``solvers/incomp.py`` checks for
+(every pressure solver and method; no immersed boundary, no
+``pressure_precond_dtype``).
 """
 
 from __future__ import annotations

@@ -3,13 +3,15 @@
 
 One step: adaptive CFL dt, state rotation, then ``num_subiter``
 subiterations of { Crank-Nicolson midpoint -> momentum RHS -> velocity
-update -> BCs -> optional outflow correction -> divergence -> BoxMG-PCG
-pressure solve -> gauge shift -> projection }.
+update -> BCs -> optional outflow correction -> divergence -> pressure
+solve -> gauge shift -> projection }.
 
-Supported configuration: ``pressure_method="pcg"``, ``pressure_solver=
-"boxmg"``, no immersed boundary, no preconditioner dtype override; other
-settings raise. The step reads ``dt > 0`` and each PCG iteration's exit
-test back to the host (``core.sync``).
+The pressure solve takes the JAX package's whole surface: ``pressure_method``
+"pcg", "bicgstab", "gmres" or "mgsolve" around ``pressure_solver`` "mg",
+"boxmg", "jacobi" or "none", or ``pressure_solver="direct"`` (dense, small
+boxes). Not ported, and raising: ``pressure_precond_dtype`` and immersed
+boundaries. The step reads ``dt > 0`` and each solver iteration's exit test
+back to the host (``core.sync``).
 """
 
 from __future__ import annotations
@@ -24,17 +26,25 @@ from fluidsolver_tpu_torch.core import fields, sync
 from fluidsolver_tpu_torch.core.grid import Grid
 from fluidsolver_tpu_torch.ops import momentum as mom
 from fluidsolver_tpu_torch.ops import stencil
-from fluidsolver_tpu_torch.poisson import cg, linsys
+from fluidsolver_tpu_torch.poisson import cg, krylov, linsys
+from fluidsolver_tpu_torch.poisson.direct import solve_direct
 from fluidsolver_tpu_torch.solvers.config import SolverConfig
 from fluidsolver_tpu_torch.solvers.state import (FlowState, clamp_dt_to_end,
                                                   end_tolerance, save_old)
 
 
+PRESSURE_SOLVERS = ("mg", "boxmg", "jacobi", "none", "direct")
+PRESSURE_METHODS = ("pcg", "bicgstab", "gmres", "mgsolve")
+
+
 def _check_supported(cfg: SolverConfig) -> None:
-    if cfg.pressure_method != "pcg" or cfg.pressure_solver != "boxmg":
-        raise ValueError("the port solves the pressure with pressure_method='pcg', "
-                         f"pressure_solver='boxmg' only (got {cfg.pressure_method!r}, "
-                         f"{cfg.pressure_solver!r})")
+    if cfg.pressure_solver not in PRESSURE_SOLVERS:
+        raise ValueError(f"unknown pressure_solver: {cfg.pressure_solver!r}")
+    if cfg.pressure_method not in PRESSURE_METHODS:
+        raise ValueError(f"unknown pressure_method: {cfg.pressure_method!r}")
+    if cfg.pressure_method == "mgsolve" and cfg.pressure_solver not in ("mg", "boxmg"):
+        raise ValueError("pressure_method='mgsolve' needs pressure_solver in {'mg', 'boxmg'} "
+                         "(the V-cycle is the solver)")
     if cfg.pressure_precond_dtype is not None:
         raise ValueError("pressure_precond_dtype is not ported")
     if cfg.ib_mode is not None:
@@ -50,8 +60,10 @@ def _periodic_axes(cfg: SolverConfig) -> tuple[bool, bool]:
 
 def pressure_solve(state: FlowState, div, dt, grid: Grid, cfg: SolverConfig,
                    x0=None, levels=None, tol: Optional[float] = None):
-    """Assemble + PCG-solve the pressure Poisson system; returns the gauge-
-    shifted increment delta_p, the relative residual and the iterations."""
+    """Assemble and solve the pressure Poisson system; returns the gauge-
+    shifted increment delta_p, the relative residual and the iterations
+    (``direct``: 0 and 1). ``x0``: a warm-start guess; ``levels``: a
+    prebuilt hierarchy of ``cfg.pressure_solver``."""
     _check_supported(cfg)
     if tol is None:
         tol = cfg.pressure_tol
@@ -60,17 +72,37 @@ def pressure_solve(state: FlowState, div, dt, grid: Grid, cfg: SolverConfig,
     per_x, per_y = _periodic_axes(cfg)
     rhs = linsys.build_pressure_rhs(div, grid.dx, grid.dy, dt, cfg.pressure_pin,
                                     periodic_x=per_x, periodic_y=per_y)
-    delta_p, rel, iters = cg.solve_pcg(
-        op, rhs, tol=tol, max_iter=cfg.pressure_max_iter,
-        singular=cfg.pressure_pin is None, precond=cfg.pressure_solver,
-        n_pre=cfg.mg_pre, n_post=cfg.mg_post, x0=x0, levels=levels,
-    )
+    singular = cfg.pressure_pin is None
+    if cfg.pressure_solver == "direct":
+        delta_p = solve_direct(op, rhs, singular)
+        rel, iters = torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
+    elif cfg.pressure_method == "pcg":
+        delta_p, rel, iters = cg.solve_pcg(
+            op, rhs, tol=tol, max_iter=cfg.pressure_max_iter, singular=singular,
+            precond=cfg.pressure_solver, n_pre=cfg.mg_pre, n_post=cfg.mg_post, x0=x0,
+            levels=levels,
+        )
+    else:
+        M_inv, _ = cg.make_m_inv(op, cfg.pressure_solver, levels=levels, n_pre=cfg.mg_pre,
+                                 n_post=cfg.mg_post)
+        common = dict(tol=tol, max_iter=cfg.pressure_max_iter, singular=singular, M_inv=M_inv,
+                      x0=x0)
+        if cfg.pressure_method == "bicgstab":
+            delta_p, rel, iters = krylov.solve_bicgstab(op, rhs, **common)
+        elif cfg.pressure_method == "gmres":
+            delta_p, rel, iters = krylov.solve_gmres(op, rhs, restart=cfg.pressure_gmres_restart,
+                                                     **common)
+        else:
+            delta_p, rel, iters = krylov.solve_mg(op, rhs, **common)
     return stencil.shift_pressure_to_zero(delta_p, grid.dx, grid.dy), rel, iters
 
 
-def build_step_levels(rho_u, rho_v, grid: Grid, cfg: SolverConfig) -> list:
-    """The BoxMG hierarchy of the operator assembled from these densities."""
+def build_step_levels(rho_u, rho_v, grid: Grid, cfg: SolverConfig):
+    """The multigrid hierarchy of the operator assembled from these
+    densities, or None for a solver without one."""
     _check_supported(cfg)
+    if cfg.pressure_solver not in ("mg", "boxmg"):
+        return None
     op = linsys.assemble_pressure_operator(rho_u, rho_v, grid.dx, grid.dy, cfg.pressure_pin)
     return cg.build_precond_levels(op, cfg.pressure_solver)
 
@@ -88,10 +120,11 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device) -> Call
     """Build ``step(state, t_end) -> state`` for states of ``dtype`` on
     ``device``.
 
-    Single-phase density is constant (``cfg.rho_gas``), so the BoxMG
-    hierarchy is built here once, on ``device``, from constant densities:
-    on a GPU this is where the setup kernels run. The PCG operator itself is
-    assembled from ``state.rho_u``/``rho_v`` at every solve."""
+    Single-phase density is constant (``cfg.rho_gas``), so the multigrid
+    hierarchy ("mg" or "boxmg") is built here once, on ``device``, from
+    constant densities: on a GPU this is where BoxMG's setup kernels run.
+    The solver's operator itself is assembled from ``state.rho_u``/``rho_v``
+    at every solve."""
     _check_supported(cfg)
     device = torch.device(device)
     rho_eps = mom.calc_rho_eps(cfg.rho_gas, cfg.rho_liquid)

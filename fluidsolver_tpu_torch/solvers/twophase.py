@@ -7,22 +7,23 @@ geometric VOF advection (kernel #12) -> viscosity from the new vf ->
 curvature (kernel #11) and interface length from the vf_old reconstruction
 -> ``num_subiter`` subiterations of { Crank-Nicolson midpoint; consistent
 density transport; momentum with hybrid upwinding and gravity; BCs and the
-outflow correction; divergence plus the pressure-jump increment; BoxMG-PCG
-pressure solve; projection }.
+outflow correction; divergence plus the pressure-jump increment; pressure
+solve; projection }.
 
-Supported configuration: that of ``solvers/incomp.py`` (PCG with the BoxMG
-preconditioner, no immersed boundary) with the production VOF path
-(sparse advection, volume-matching curvature, pressure-jump surface
-tension). ``pressure_precond_refresh`` "solve" builds the hierarchy inside
-every solve; "step" builds it once per step from subiteration 0's
-transported densities and reuses it for the rest. Other settings raise.
+Supported configuration: the pressure solvers of ``solvers/incomp.py`` (no
+immersed boundary) with the production VOF path (sparse advection,
+volume-matching curvature, pressure-jump surface tension).
+``pressure_precond_refresh`` "solve" builds the multigrid hierarchy ("mg"
+or "boxmg") inside every solve; "step" builds it once per step from
+subiteration 0's transported densities and reuses it for the rest; a
+solver without a hierarchy has none to build. Other settings raise.
 
 The step runs the reference's fused composition (its ``FS_PALLAS_CG`` and
 ``FS_PALLAS_MOMENTUM``): the fused PCG iteration (kernels 5-7, in
 ``poisson/cg.py``) and the fused momentum stage (kernel 8,
 ``ops/cuda_momentum.py``).
 
-Host reads per step: ``dt > 0`` and each PCG iteration's exit test
+Host reads per step: ``dt > 0`` and each solver iteration's exit test
 (``core.sync``); the VOF stage adds none. The VOF stage and the pressure
 solves run inside the profiler ranges ``VOF_RANGE`` and ``PRESSURE_RANGE``.
 """
@@ -120,8 +121,8 @@ def _check_supported(cfg: SolverConfig) -> None:
 
 def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=None) -> Callable:
     """Build ``step(state, t_end) -> state`` for states of ``dtype`` on
-    ``device``. The BoxMG hierarchy depends on the transported densities,
-    so it is built inside the step (see the module doc)."""
+    ``device``. The multigrid hierarchy depends on the transported
+    densities, so it is built inside the step (see the module doc)."""
     if mesh is not None:
         raise ValueError("the multi-device (mesh) step is not ported")
     incomp._check_supported(cfg)

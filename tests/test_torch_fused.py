@@ -231,7 +231,7 @@ def test_solve_pcg_zero_rhs(singular):
     test)."""
     jop = drop_operator(32, None if singular else "left")
     x, res, it = cg.solve_pcg(port_op(jop), torch.zeros(jop.aC.shape, dtype=torch.float64),
-                              tol=1e-8, max_iter=50, singular=singular,
+                              tol=1e-8, max_iter=50, singular=singular, precond="boxmg",
                               x0=torch.ones(jop.aC.shape, dtype=torch.float64))
     assert it == 0 and float(res) == 0.0 and float(x.abs().max()) == 0.0
 

@@ -97,7 +97,8 @@ def test_fixed_runner_matches_run():
 def test_unsupported_config_raises():
     case = get_case("lid_driven", n=16)
     with pytest.raises(ValueError):
-        incomp.make_step(case.grid, dataclasses.replace(case.cfg, pressure_method="gmres"), torch.float64, "cpu")
+        incomp.make_step(case.grid, dataclasses.replace(case.cfg, pressure_precond_dtype="bfloat16"),
+                         torch.float64, "cpu")
     step = case.make_step(torch.float64, "cpu")
     with pytest.raises(ValueError):
         step(case.make_state(torch.float32, "cpu"), case.t_end)

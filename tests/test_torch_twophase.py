@@ -108,7 +108,7 @@ def test_fixed_runner_matches_run():
     dict(vof_no_correction=True),
     dict(vof_staggered_backtrace=True),
     dict(pressure_precond_refresh="never"),
-    dict(pressure_solver="mg"),
+    dict(pressure_precond_dtype="bfloat16"),
 ])
 def test_unsupported_options_raise(change):
     case = get_case("stationary_drop", n=16)
