@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases (each prints its own lines; any failure exits non-zero before the
 result line):
@@ -11,7 +11,15 @@ result line):
      (to max |twin|) tolerance of 1e-5, at the level shapes of a 1026^2
      and of an odd 1023 x 771 box; kernel and twin times by CUDA events
      (the calls queued behind a device sleep, see time_ms) at the main
-     path's shapes;
+     path's shapes; the tail kernels also on a 160^2 tail of 6 levels, a
+     66^2 tail with a 5-point finest operator and an odd 129 x 97 tail, f32
+     and f64, V(2,2) and V(1,1) (tail_cycle bitwise in f32); tail_cycle's
+     time on the tails that start at each level of the main path's tail
+     (the per-level split) and the cost of an empty cluster and block
+     barrier (its dependency floor); with --parent DIR (a checkout of
+     another commit, e.g. the parent unpacked by git archive), that
+     commit's tail_cycle built from DIR and timed in turns with this one's
+     (parent, this, this, parent) on the same inputs;
   3b. the three VOF kernels (elvira, curvature, overlap) against their twins
      on the bench drop's vf (1026^2 box) and on an odd 1023 x 771 box with
      25 drops: f64 at the CPU tests' tolerances, f32 at the relative 1e-5;
@@ -60,6 +68,7 @@ launches from phase 6, rb_sweep's from phase 7); the last line is
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -272,8 +281,9 @@ def time_ms(fn, reps: int, kernel: bool = False) -> float:
 
 
 # ---- phase 3 ---------------------------------------------------------------
-def kernel_phase(device, errors: Errors) -> dict:
-    """Returns name -> (kernel ms, twin ms, bound ms, bound by)."""
+def kernel_phase(device, errors: Errors, tail_start: dict) -> dict:
+    """Returns name -> (kernel ms, twin ms, bound ms, bound by); puts the
+    main path's f32 tail (its operator, levels and b) into ``tail_start``."""
     from fluidsolver_tpu_torch.poisson import boxmg, cuda_rap, cuda_tail, cuda_vcycle
 
     times = {}
@@ -299,7 +309,10 @@ def kernel_phase(device, errors: Errors) -> dict:
                 xk = cuda_tail.tail_cycle_cuda(pt, b, 2, 2)
                 errors.compare("tail_cycle", [xk], [xt], dtype, 1e-12, 1e-12 * float(xt.abs().max()), main,
                                f"{tag} level {lshape} V(2,2)")
+                require(dtype == torch.float64 or torch.equal(xk, xt),
+                        f"tail_cycle {tag} level {lshape} V(2,2): not bitwise in f32")
                 if main and dtype == torch.float32:
+                    tail_start.update(op=op, n_rem=n_rem, b=b)
                     shapes = cuda_tail.level_shapes(lshape, n_rem)
                     pts = [a * c for a, c in shapes]
                     # setup: 9 planes in, the pack out; ~540 flops per coarse point
@@ -356,6 +369,146 @@ def kernel_phase(device, errors: Errors) -> dict:
             op = ct
             level += 1
     return times
+
+
+def tail_cycle_with(lib, pack, b, n_pre: int, n_post: int):
+    """cuda_tail.tail_cycle_cuda through the library ``lib`` (another
+    checkout's build, for an A/B run in one process)."""
+    from fluidsolver_tpu_torch.poisson import _kernels, boxmg
+
+    planes = boxmg.coefs(pack.op0)
+    x = torch.empty_like(b)
+    scratch = b.new_empty(sum(4 * n * m for n, m in pack.shapes))
+    rc = lib.fs_tail_cycle(_kernels.dtype_code(b.dtype), len(planes), _kernels.ptrs(planes), pack.buf.data_ptr(),
+                           b.data_ptr(), x.data_ptr(), scratch.data_ptr(), *pack.shapes[0], len(pack.shapes),
+                           n_pre, n_post, _kernels.stream(b.device))
+    require(rc == 0, f"tail_cycle launch failed: cudaError {rc}")
+    return x
+
+
+def tail_level_split(op, n_rem: int, device, lib=None) -> list:
+    """tail_cycle V(2,2) on the tails that start at each level of the tail
+    of ``op`` (each built by build_tail_pack_twin from that level's
+    operator), through ``lib`` (default: this checkout's kernel): [(start
+    shape, levels, device ms)]. Successive differences are the levels'
+    shares of the whole tail's time."""
+    from fluidsolver_tpu_torch.poisson import _kernels, cuda_tail
+
+    lib = lib or _kernels.lib()
+    pt = cuda_tail.build_tail_pack_twin(op, n_rem)
+    out = []
+    for k in range(n_rem - 1):
+        pk = pt if k == 0 else cuda_tail.build_tail_pack_twin(pt.ops[k], n_rem - k)
+        b = random_field(pk.shapes[0], 800 + k, op.aC.dtype, device)
+        out.append((pk.shapes[0], n_rem - k, time_ms(lambda: tail_cycle_with(lib, pk, b, 2, 2), 50, kernel=True)))
+    return out
+
+
+def log_split(who: str, split: list) -> None:
+    shares = [(s, n, t - (split[k + 1][2] if k + 1 < len(split) else 0.0)) for k, (s, n, t) in enumerate(split)]
+    log(f"  {who} tail_cycle per-level split (f32 V(2,2), device ms): "
+        + "; ".join(f"tail from {s[0]}x{s[1]} ({n} levels) {t:.4f}" for s, n, t in split))
+    log("    level shares (ms): " + "; ".join(
+        f"{s[0]}x{s[1]}{' and coarser' if n == 2 else ''} {t:.4f}" for s, n, t in shares))
+
+
+def barrier_us(device, n_blocks: int, n_threads: int) -> float:
+    """Device time in us of one empty barrier in a cluster of ``n_blocks``
+    blocks of 1024 threads: of the whole cluster (``n_threads`` = 0), or a
+    named barrier of each block's first ``n_threads`` threads. A launch of
+    2000 barriers less a launch of none."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    lib, stream = _kernels.lib(), _kernels.stream(device)
+
+    def run(n):
+        rc = lib.fs_sync_probe(n_blocks, n, n_threads, stream)
+        require(rc == 0, f"the barrier probe did not launch: cudaError {rc}")
+
+    n = 2000
+    return (time_ms(lambda: run(n), 10, kernel=True) - time_ms(lambda: run(0), 10, kernel=True)) / n * 1e3
+
+
+def tail_barriers(shapes, n_pre: int, n_post: int) -> tuple:
+    """(cluster barriers, block barriers, named barriers of the coarsest
+    level's warps) of one csrc/tail.cu cycle: levels of more than 33^2
+    points share the cluster (each half-step, residual, restriction and
+    prolongation ends in a cluster barrier), the rest live in block 0 (each
+    half-step, residual, restriction and prolongation, and each smoothing
+    pass, ends in a block barrier; the coarsest level's half-steps in a
+    named barrier of its warps)."""
+    nl = len(shapes)
+    nc = next((d for d, (n, m) in enumerate(shapes) if n * m <= 33 * 33), nl)
+    down = min(nc, nl - 1)
+    cluster = sum(2 * n_pre + 1 + (d + 1 < nc) for d in range(down)) + down * (1 + 2 * n_post)
+    if nc == nl:
+        return cluster + 4 * 16, 0, 0
+    block = 1 + (nc > 0) + (nl - 1 - nc) * (2 * n_pre + 2 * n_post + 5) + 1
+    return cluster + (nc > 0), block, 4 * 16
+
+
+def tail_report_phase(device, tail_start: dict, parent) -> None:
+    """The per-level split of tail_cycle at the main path's tail and its
+    dependency floors; with ``parent`` (a checkout of another commit), the
+    same for that commit's kernel, and both timed in turns (parent, this,
+    this, parent) on the same inputs."""
+    from fluidsolver_tpu_torch.poisson import _kernels, cuda_tail
+
+    op, n_rem, b = tail_start["op"], tail_start["n_rem"], tail_start["b"]
+    log_split("this commit's", tail_level_split(op, n_rem, device))
+    shapes = cuda_tail.level_shapes(tuple(op.aC.shape), n_rem)
+    nc, nb, nw = tail_barriers(shapes, 2, 2)
+    n_warps = -(-shapes[-1][0] * shapes[-1][1] // 32) * 32
+    b8, b1, bw = barrier_us(device, 8, 0), barrier_us(device, 1, 1024), barrier_us(device, 1, n_warps)
+    log(f"  empty barrier: cluster of 8 x 1024 threads {b8:.4f} us, block of 1024 threads {b1:.4f} us, "
+        f"named barrier of {n_warps} threads {bw:.4f} us; floors: 113 phases (the one-block kernel's) x the "
+        f"cluster barrier = {113 * b8 / 1e3:.4f} ms; this kernel's {nc} cluster + {nb} block + {nw} named "
+        f"barriers = {(nc * b8 + nb * b1 + nw * bw) / 1e3:.4f} ms")
+    if parent is None:
+        return
+    so = _kernels.build(csrc=Path(parent) / "fluidsolver_tpu_torch" / "csrc", build_dir=_kernels.BUILD_DIR / "parent")
+    plib = ctypes.CDLL(str(so))
+    plib.fs_tail_cycle.argtypes = _kernels._SIGNATURES["fs_tail_cycle"]
+    plib.fs_tail_cycle.restype = ctypes.c_int
+    pt = cuda_tail.build_tail_pack_twin(op, n_rem)
+    xo, xn = tail_cycle_with(plib, pt, b, 2, 2), cuda_tail.tail_cycle_cuda(pt, b, 2, 2)
+    require(torch.equal(xo, xn), "the parent's tail_cycle and this commit's differ")
+    runs = [("parent", plib), ("this", None), ("this", None), ("parent", plib)]
+    ms = [time_ms(lambda: tail_cycle_with(lib or _kernels.lib(), pt, b, 2, 2), 50, kernel=True) for _, lib in runs]
+    log(f"  tail_cycle at {shapes[0][0]}x{shapes[0][1]} ({n_rem} levels, f32 V(2,2)), device ms in turns: "
+        + ", ".join(f"{w} {t:.4f}" for (w, _), t in zip(runs, ms))
+        + f"; this / parent = {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
+    log_split("the parent's", tail_level_split(op, n_rem, device, plib))
+
+
+def tail_domain_phase(device, errors: Errors) -> None:
+    """tail_setup and tail_cycle against their twins across tail_fits'
+    domain: a 160 x 160 tail of 6 levels (9-point), a 66 x 66 tail of 4
+    levels with a 5-point finest operator (lid_driven(64) and the golden
+    drop), an odd 129 x 97 tail of 5 levels (9-point); f32 and f64, V(2,2)
+    and V(1,1); tail_cycle at rtol 1e-12, bitwise in f32."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap, cuda_tail
+
+    for dtype in (torch.float64, torch.float32):
+        for name, fine, coarsen, n_levels in (("160x160", (319, 319), True, 6), ("66x66 5-point", (66, 66), False, 4),
+                                             ("129x97", (257, 193), True, 5)):
+            op = random_operator(*fine, seed=17, dtype=dtype, device=device)
+            if coarsen:
+                op = cuda_rap.fused_rap_twin(op)[1]
+            tag = f"{str(dtype)[6:]} {name} ({n_levels} levels)"
+            pk = cuda_tail.build_tail_pack_cuda(op, n_levels)
+            pt = cuda_tail.build_tail_pack_twin(op, n_levels)
+            errors.compare("tail_setup", [pk.buf], [pt.buf], dtype, 1e-10, 1e-10 * float(pt.buf.abs().max()),
+                           False, f"{tag} pack")
+            b = random_field(tuple(op.aC.shape), 900, dtype, device)
+            for pre_post in ((2, 2), (1, 1)):
+                xk = cuda_tail.tail_cycle_cuda(pt, b, *pre_post)
+                xt = cuda_tail.tail_cycle_twin(pt, b, *pre_post)
+                errors.compare("tail_cycle", [xk], [xt], dtype, 1e-12, 1e-12 * float(xt.abs().max()), False,
+                               f"{tag} V{pre_post}")
+                require(dtype == torch.float64 or torch.equal(xk, xt), f"tail_cycle {tag} V{pre_post}: not bitwise")
+            log(f"  {tag}: tail_setup and tail_cycle (V(2,2), V(1,1)) agree"
+                + (", tail_cycle bitwise" if dtype == torch.float32 else ""))
 
 
 # ---- phase 3b --------------------------------------------------------------
@@ -1124,7 +1277,13 @@ def mg_bench_phase(device, g, cfg, vf0) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one H100.")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of another commit: also time its tail_cycle against this one's (phase 3)")
+    parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1157,7 +1316,10 @@ def main() -> int:
 
         phase = "3 kernels vs twins"
         log("phase 3: BoxMG kernels against their twins on the card")
-        times = kernel_phase(device, errors)
+        tail_start = {}
+        times = kernel_phase(device, errors, tail_start)
+        tail_domain_phase(device, errors)
+        tail_report_phase(device, tail_start, parent)
         phase = "3b VOF kernels vs twins"
         log("phase 3b: VOF kernels against their twins on the card")
         times.update(vof_kernel_phase(device, errors, vf_bench, g_bench))

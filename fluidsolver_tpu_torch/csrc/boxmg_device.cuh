@@ -53,22 +53,33 @@ template <typename T>
 __device__ __forceinline__ T safe(T d) { return d == T(0) ? T(1) : d; }
 
 // ---- operator application ---------------------------------------------------
-// (A x)(i, j) - aC x(i, j) and aC(i, j) for a point inside the level; X(i, j)
-// returns the current iterate (zero outside the level).
-template <typename T, int NC, typename XAcc>
-__device__ __forceinline__ T apply_at(const Level<T>& L, size_t o, int i, int j, XAcc X) {
-  T acc = L.a[0][o] * X(i, j);
+// (A x)(i, j) for a point inside the level; C(k) returns the point's
+// coefficient k, X(i, j) the current iterate (zero outside the level).
+template <typename T, int NC, typename CAcc, typename XAcc>
+__device__ __forceinline__ T apply_coefs(CAcc C, int i, int j, XAcc X) {
+  T acc = C(0) * X(i, j);
 #pragma unroll
-  for (int k = 1; k < NC; ++k) acc = acc + L.a[k][o] * X(i + off_i(k), j + off_j(k));
+  for (int k = 1; k < NC; ++k) acc = acc + C(k) * X(i + off_i(k), j + off_j(k));
   return acc;
 }
 
 // Gauss-Seidel value of one point: (b - (A x - aC x)) / safe(aC)
+template <typename T, int NC, typename CAcc, typename XAcc>
+__device__ __forceinline__ T gs_coefs(CAcc C, int i, int j, T b, XAcc X) {
+  const T c = C(0);
+  const T ax_off = apply_coefs<T, NC>(C, i, j, X) - c * X(i, j);
+  return (b - ax_off) / safe(c);
+}
+
+// the same with the coefficients read from the level's planes at offset o
+template <typename T, int NC, typename XAcc>
+__device__ __forceinline__ T apply_at(const Level<T>& L, size_t o, int i, int j, XAcc X) {
+  return apply_coefs<T, NC>([&](int k) { return L.a[k][o]; }, i, j, X);
+}
+
 template <typename T, int NC, typename XAcc>
 __device__ __forceinline__ T gs_value(const Level<T>& L, size_t o, int i, int j, T b, XAcc X) {
-  const T c = L.a[0][o];
-  const T ax_off = apply_at<T, NC>(L, o, i, j, X) - c * X(i, j);
-  return (b - ax_off) / safe(c);
+  return gs_coefs<T, NC>([&](int k) { return L.a[k][o]; }, i, j, b, X);
 }
 
 // ---- operator-collapsed weights (boxmg.collapse_weights) --------------------

@@ -9,21 +9,48 @@
 // and forms the Galerkin product by comb probing; here the weights and the
 // closed-form product are the device functions fused_rap uses
 // (boxmg_device.cuh), so the result equals boxmg.galerkin_closed level by
-// level.
+// level. It is one thread block of 1024 threads with __syncthreads() between
+// levels.
 //
 // tail_cycle replaces fluidsolver_tpu/poisson/pallas_tail.py:455
 // (tail_cycle, pallas_call at :482): one V(n_pre, n_post) cycle over the
 // whole tail, the coarsest level running COARSE_SWEEPS / 2 forward+reverse
 // sweep pairs instead of a dense inverse.
 //
-// Bound: synchronisation and on-chip bandwidth, not device memory. The tail
-// is a few hundred KB and stays in the 50 MB L2; a cycle is ~110 dependent
-// colour updates. Both kernels are one thread block of 1024 threads that
-// walks the levels in global memory with __syncthreads() between
-// dependent steps -- one launch instead of ~13 per level visit. Colour
-// updates ping-pong between two buffers because a 9-point update reads the
-// previous iterate at its same-colour corners. One block uses one SM; a
-// cluster or shared-memory-resident version is later work.
+// What bounds tail_cycle on an H100 is its chain of dependent phases, not
+// bytes: the tail is a few hundred KB (its bytes bound is ~0.3 us), but a
+// V(2,2) cycle over the bench tail (129^2 .. 9^2) is ~110 colour updates,
+// residuals and transfers, each of which must see the whole previous one.
+// So the cycle costs (phases) x (barrier + the latency of one phase's loads
+// and arithmetic). The design cuts both factors:
+// - one launch of one thread-block cluster of kClusterBlocks blocks (the
+//   portable size) runs the whole cycle: no launch per level visit;
+// - levels of more than kResidentPoints points ("cluster levels", 129^2 and
+//   65^2 on the bench tail) are shared by every thread of the cluster, a few
+//   points each, in device memory (L2); their phases end in a cluster
+//   barrier (~0.7 us). Data one block writes and another reads after the
+//   barrier is read with __ldcg (L2, never a stale L1 line); the coefficient
+//   and weight planes, which the cycle never writes, go through L1. A point's
+//   operands are all loaded before its arithmetic, so that their L2 round
+//   trips overlap;
+// - the smaller levels ("resident levels", 33^2, 17^2 and 9^2) live in block
+//   0's dynamic shared memory for the whole launch (Resident): coefficients
+//   and weights, copied in by cp.async while block 0 idles on a small
+//   cluster level, the iterate in zero-ringed buffers (a neighbour is one
+//   load at a fixed offset), b and r. Block 0 runs their part of the cycle
+//   alone with block barriers (~0.05 us); in a smoothing pass each thread
+//   keeps its points' coefficients in registers, and the coarsest level's
+//   64 half-steps use a named barrier of only the warps that hold its
+//   points. The other blocks wait at the next cluster barrier; block 0 hands
+//   the result back through a device-memory copy of the first resident
+//   level's iterate.
+// Colour updates ping-pong between two buffers because a 9-point update reads
+// the previous iterate at its same-colour corners. Per point the arithmetic
+// is boxmg_device.cuh's (gs_coefs / apply_coefs, restrict_at, prolong_at) in
+// the twin's operand order, so the result is the twin's to the last bit.
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
+
 #include "boxmg_device.cuh"
 
 namespace fs {
@@ -31,6 +58,30 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kCoarsePairs = 16;   // boxmg.COARSE_SWEEPS // 2
+constexpr int kClusterBlocks = 8;
+constexpr int kResidentPoints = 33 * 33;
+constexpr int kOwn = (kResidentPoints + kThreads - 1) / kThreads;   // points per thread on a resident level
+constexpr size_t kMaxSharedBytes = 232448;   // what one block may use on sm_90
+
+// one launch of n_blocks blocks of kThreads threads as one cluster
+template <typename... Exp, typename... Act>
+int launch_cluster(void (*kernel)(Exp...), int n_blocks, size_t smem, cudaStream_t stream,
+                   const Act&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
 
 // ---- setup -----------------------------------------------------------------
 // Layout of the pack buffer, per level d < n_levels - 1 with coarse size
@@ -78,109 +129,411 @@ __global__ void __launch_bounds__(kThreads) tail_setup_kernel(Level<T> F, int n_
 // ---- cycle -----------------------------------------------------------------
 template <typename T>
 struct TailLevel {
-  Level<T> op;
+  Level<T> op;          // coefficient planes in device memory
   WeightPlanes<T> tr;   // transfer to the next level (unused on the coarsest)
-  T* x;                 // iterate
+  T* x;                 // iterate (a resident level's: the hand-off copy)
   T* xt;                // ping-pong partner
   T* b;                 // right-hand side
   T* r;                 // residual
+  int smem;             // resident level: element offset of its block in shared memory
 };
 
 template <typename T>
 struct TailArgs {
   TailLevel<T> lv[kMaxTailLevels];
-  int n_levels, n_pre, n_post;
+  int n_levels, n_cluster, n_pre, n_post;   // levels d < n_cluster are cluster levels
   T* x_out;
 };
 
-// one colour half-step on level L: x <- GS value on the colour's points;
-// returns with L.x holding the result (buffers swapped)
-template <typename T, int NC>
-__device__ void half_step(TailLevel<T>& L, bool red) {
-  const int N = L.op.N, M = L.op.M;
-  const T* x = L.x;
-  auto X = [&](int i, int j) { return ld(x, i, j, N, M); };
-  for (int p = threadIdx.x; p < N * M; p += kThreads) {
-    const int i = p / M, j = p % M;
-    T v = x[p];
-    if ((((i + j) & 1) == 0) == red) v = gs_value<T, NC>(L.op, (size_t)p, i, j, L.b[p], X);
-    L.xt[p] = v;
+// A resident level in block 0's shared memory: its 9 coefficient planes (S
+// = N M each), the 8 weight planes of its transfer (Sc each, not on the
+// coarsest), the iterate and its ping-pong partner in two zero-ringed
+// (N + 2) x (M + 2) buffers xp and xq (a neighbour read is one load at a
+// fixed offset, and the ring is the zero outside the level), then b and r.
+// The tail-finest level reads b from device memory.
+template <typename T>
+struct Resident {
+  Level<T> op;
+  WeightPlanes<T> tr;
+  T *xp, *xq, *b, *r;
+  __device__ int at(int i, int j) const { return (i + 1) * (op.M + 2) + j + 1; }
+};
+
+template <typename T>
+__device__ Resident<T> resident(const TailArgs<T>& A, int d, T* sm) {
+  const TailLevel<T>& L = A.lv[d];
+  Resident<T> R;
+  const size_t S = (size_t)L.op.N * L.op.M;
+  T* p = sm + L.smem;
+  R.op.N = L.op.N;
+  R.op.M = L.op.M;
+  for (int k = 0; k < 9; ++k) R.op.a[k] = p + k * S;
+  p += 9 * S;
+  R.tr.Nc = L.tr.Nc;
+  R.tr.Mc = L.tr.Mc;
+  if (d < A.n_levels - 1) {
+    const size_t Sc = (size_t)L.tr.Nc * L.tr.Mc;
+    for (int q = 0; q < 8; ++q) R.tr.w[q] = p + q * Sc;
+    p += 8 * Sc;
   }
-  __syncthreads();
-  T* t = L.x;
-  L.x = L.xt;
-  L.xt = t;
+  const size_t SP = (size_t)(L.op.N + 2) * (L.op.M + 2);
+  R.xp = p;
+  R.xq = p + SP;
+  R.b = d == 0 ? L.b : p + 2 * SP;
+  R.r = p + 2 * SP + S;
+  return R;
 }
 
+// The threads that share a level's points, and their barrier.
+struct ClusterTeam {   // every thread of the cluster (block 0's last)
+  int tid, n;
+  __device__ void sync() const { cooperative_groups::this_cluster().sync(); }
+};
+struct BlockTeam {     // block 0's threads below n (a multiple of 32)
+  int tid, n;
+  __device__ void sync() const {
+    if (n == kThreads) __syncthreads();
+    else asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+  }
+};
+
+// kL2: the level lives in device memory, where other blocks write it
+template <typename T, bool kL2>
+__device__ __forceinline__ T rd(const T* p, int o) {
+  if constexpr (kL2) return __ldcg(p + o);
+  else return p[o];
+}
+
+template <typename T, bool kL2>
+__device__ __forceinline__ T rd(const T* p, int i, int j, int N, int M) {
+  return (i >= 0 && i < N && j >= 0 && j < M) ? rd<T, kL2>(p, i * M + j) : T(0);
+}
+
+// A point's coefficients and its neighbourhood of the iterate, all loaded
+// before any arithmetic so that the loads are in flight together; then
+// boxmg_device.cuh's arithmetic on the loaded values.
 template <typename T, int NC>
-__device__ void residual(TailLevel<T>& L) {
-  const int N = L.op.N, M = L.op.M;
-  const T* x = L.x;
-  auto X = [&](int i, int j) { return ld(x, i, j, N, M); };
-  for (int p = threadIdx.x; p < N * M; p += kThreads)
-    L.r[p] = L.b[p] - apply_at<T, NC>(L.op, (size_t)p, p / M, p % M, X);
+struct Loaded {
+  T c[NC], x[NC];
+  template <typename XAcc>
+  __device__ __forceinline__ Loaded(const Level<T>& op, int o, int i, int j, XAcc X) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      c[k] = op.a[k][o];
+      x[k] = X(i + off_i(k), j + off_j(k));
+    }
+  }
+  __device__ __forceinline__ T apply() const {
+    return apply_coefs<T, NC>([&](int k) { return c[k]; }, 0, 0,
+                              [&](int di, int dj) { return x[coef_index(di, dj)]; });
+  }
+  __device__ __forceinline__ T gs(T b) const {
+    return gs_coefs<T, NC>([&](int k) { return c[k]; }, 0, 0, b,
+                           [&](int di, int dj) { return x[coef_index(di, dj)]; });
+  }
+};
+
+// -- the phases of a cluster level (device memory, the whole cluster) --
+// one colour half-step: dst <- src with the colour's points replaced by
+// their Gauss-Seidel values; src == nullptr is a zero iterate
+template <typename T, int NC, typename Team>
+__device__ void half_step(const Level<T>& op, const T* b, const T* src, T* dst, bool red,
+                          const Team& tm) {
+  const int N = op.N, M = op.M;
+  auto X = [&](int i, int j) { return src ? rd<T, true>(src, i, j, N, M) : T(0); };
+  for (int p = tm.tid; p < N * M; p += tm.n) {
+    const int i = p / M, j = p % M;
+    T v = src ? rd<T, true>(src, p) : T(0);
+    if ((((i + j) & 1) == 0) == red) {
+      const T bp = rd<T, true>(b, p);
+      v = Loaded<T, NC>(op, p, i, j, X).gs(bp);
+    }
+    dst[p] = v;
+  }
+  tm.sync();
+}
+
+// 2 n_sweeps half-steps from x (zero: a zero iterate), the first colour red
+// when red_first; x and xt swap per half-step, an even count, so the result
+// is in x. With last, the final half-step writes there instead (n_sweeps =
+// 0: x is copied there).
+template <typename T, int NC, typename Team>
+__device__ void smooth(const Level<T>& op, const T* b, T* x, T* xt, bool zero, bool red_first,
+                       int n_sweeps, const Team& tm, T* last = nullptr) {
+  for (int h = 0; h < 2 * n_sweeps; ++h) {
+    T* dst = (last && h == 2 * n_sweeps - 1) ? last : xt;
+    half_step<T, NC>(op, b, zero ? nullptr : x, dst, ((h & 1) == 0) == red_first, tm);
+    T* t = x;
+    x = xt;
+    xt = t;
+    zero = false;
+  }
+  if (n_sweeps == 0 && last) {
+    for (int p = tm.tid; p < op.N * op.M; p += tm.n) last[p] = zero ? T(0) : rd<T, true>(x, p);
+    tm.sync();
+  }
+}
+
+// the coarsest level: symmetric forward+reverse sweep pairs from zero
+template <typename T, typename Team>
+__device__ void coarsest(const Level<T>& op, const T* b, T* x, T* xt, const Team& tm) {
+  for (int h = 0; h < 4 * kCoarsePairs; ++h) {
+    half_step<T, 9>(op, b, h == 0 ? nullptr : x, xt, (h & 3) == 0 || (h & 3) == 3, tm);
+    T* t = x;
+    x = xt;
+    xt = t;
+  }
+}
+
+// r <- b - A x (x == nullptr: zero)
+template <typename T, int NC, typename Team>
+__device__ void residual(const Level<T>& op, const T* b, const T* x, T* r, const Team& tm) {
+  const int N = op.N, M = op.M;
+  auto X = [&](int i, int j) { return x ? rd<T, true>(x, i, j, N, M) : T(0); };
+  for (int p = tm.tid; p < N * M; p += tm.n) {
+    const T bp = rd<T, true>(b, p);
+    r[p] = bp - Loaded<T, NC>(op, p, p / M, p % M, X).apply();
+  }
+  tm.sync();
+}
+
+// bc <- P^T r for the (N, M) residual r (kL2: r in device memory, else in
+// block 0's shared memory)
+template <typename T, bool kL2, typename Team>
+__device__ void restrict_to(int N, int M, const T* r, const WeightPlanes<T>& tr, T* bc,
+                            const Team& tm) {
+  auto R = [&](int i, int j) { return rd<T, kL2>(r, i, j, N, M); };
+  for (int p = tm.tid; p < tr.Nc * tr.Mc; p += tm.n)
+    bc[p] = restrict_at<T>(p / tr.Mc, p % tr.Mc, R, tr);
+  tm.sync();
+}
+
+// x <- x + P ec on the (N, M) level (x_in == nullptr: x is zero)
+template <typename T, typename Team>
+__device__ void prolong_add(int N, int M, const T* x_in, T* x, const T* ec,
+                            const WeightPlanes<T>& tr, const Team& tm) {
+  auto E = [&](int k, int l) { return rd<T, true>(ec, k, l, tr.Nc, tr.Mc); };
+  for (int p = tm.tid; p < N * M; p += tm.n)
+    x[p] = (x_in ? rd<T, true>(x_in, p) : T(0)) + prolong_at<T>(p / M, p % M, E, tr);
+  tm.sync();
+}
+
+// -- the phases of a resident level (block 0's shared memory) --
+// n_half colour half-steps on a resident level by block 0's first n threads
+// (n a multiple of 32, each thread at most kOwn points, whose coefficients
+// and right-hand side it keeps in registers). Half-step h updates the red
+// points when h is even (kind 0, pre-smoothing), odd (kind 1,
+// post-smoothing) or 0 or 3 mod 4 (kind 2, the coarsest level's forward +
+// reverse pairs), the black ones otherwise. The iterate ping-pongs from xp
+// to xq and back, an even count, so it ends in xp; with last, the final
+// half-step also writes its points there (n_half = 0: xp is copied there).
+template <typename T, int NC>
+__device__ void sweeps_resident(const Resident<T>& R, int n, int n_half, int kind, T* last) {
+  const int N = R.op.N, M = R.op.M, P = M + 2, S = N * M;
+  const BlockTeam tm{(int)threadIdx.x, n};
+  T a[kOwn][NC], bv[kOwn];
+  int pt[kOwn], at[kOwn];
+  bool red[kOwn];
+#pragma unroll
+  for (int u = 0; u < kOwn; ++u) {
+    const int p = tm.tid + u * n, q = min(p, S - 1);
+    const int i = q / M, j = q % M;
+    pt[u] = p < S ? p : -1;
+    at[u] = R.at(i, j);
+    red[u] = ((i + j) & 1) == 0;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) a[u][k] = R.op.a[k][q];
+    bv[u] = R.b[q];
+  }
+  T* src = R.xp;
+  T* dst = R.xq;
+  for (int h = 0; h < n_half; ++h) {
+    const bool colour = kind == 0 ? (h & 1) == 0 : kind == 1 ? (h & 1) == 1 : ((h & 3) == 0 || (h & 3) == 3);
+#pragma unroll
+    for (int u = 0; u < kOwn; ++u) {
+      if (pt[u] < 0) continue;
+      const int o = at[u];
+      auto X = [&](int di, int dj) { return src[o + di * P + dj]; };
+      T v = src[o];
+      if (red[u] == colour) v = gs_coefs<T, NC>([&](int k) { return a[u][k]; }, 0, 0, bv[u], X);
+      dst[o] = v;
+      if (last && h == n_half - 1) last[pt[u]] = v;
+    }
+    tm.sync();
+    T* t = src;
+    src = dst;
+    dst = t;
+  }
+  if (n_half == 0 && last) {
+#pragma unroll
+    for (int u = 0; u < kOwn; ++u)
+      if (pt[u] >= 0) last[pt[u]] = src[at[u]];
+    tm.sync();
+  }
+}
+
+// the team of a resident level's sweeps: a thread per point, at most kThreads
+template <typename T>
+__device__ int sweep_team(const Resident<T>& R) {
+  return min(kThreads, (R.op.N * R.op.M + 31) / 32 * 32);
+}
+
+// block 0 starts copying the resident levels' coefficient and weight planes
+// into shared memory (cp.async: the copies are in flight while the cluster
+// levels run; resident_cycle waits for them) and zeroes their iterates'
+// buffers, ring and zero start in one
+template <typename T, int NC0>
+__device__ void stage_resident(const TailArgs<T>& A, T* sm) {
+  for (int d = A.n_cluster; d < A.n_levels; ++d) {
+    const TailLevel<T>& L = A.lv[d];
+    const Resident<T> R = resident(A, d, sm);
+    const int S = L.op.N * L.op.M;
+    for (int k = 0; k < (d == 0 ? NC0 : 9); ++k) {
+      const T* src = L.op.a[k];
+      T* dst = const_cast<T*>(R.op.a[k]);
+      for (int p = threadIdx.x; p < S; p += kThreads) __pipeline_memcpy_async(dst + p, src + p, sizeof(T));
+    }
+    if (d < A.n_levels - 1) {
+      const int Sc = L.tr.Nc * L.tr.Mc;
+      for (int q = 0; q < 8; ++q) {
+        const T* src = L.tr.w[q];
+        T* dst = const_cast<T*>(R.tr.w[q]);
+        for (int p = threadIdx.x; p < Sc; p += kThreads) __pipeline_memcpy_async(dst + p, src + p, sizeof(T));
+      }
+    }
+    for (int p = threadIdx.x; p < 2 * (L.op.N + 2) * (L.op.M + 2); p += kThreads) R.xp[p] = T(0);
+  }
+  __pipeline_commit();
+}
+
+// cluster level d on the way down: pre-smooth from zero, residual, restrict
+// (into device memory, or by block 0 into the first resident level)
+template <typename T, int NC>
+__device__ void cluster_down(const TailArgs<T>& A, int d, T* sm, const ClusterTeam& all) {
+  const TailLevel<T>& L = A.lv[d];
+  const Level<T> op = L.op;
+  const WeightPlanes<T> tr = L.tr;
+  T* x = L.x;
+  smooth<T, NC>(op, L.b, x, L.xt, true, true, A.n_pre, all);
+  residual<T, NC>(op, L.b, A.n_pre > 0 ? x : nullptr, L.r, all);
+  if (d + 1 < A.n_cluster)
+    restrict_to<T, true>(op.N, op.M, L.r, tr, A.lv[d + 1].b, all);
+  else if (cooperative_groups::this_cluster().block_rank() == 0)
+    restrict_to<T, true>(op.N, op.M, L.r, tr, resident(A, d + 1, sm).b,
+                         BlockTeam{(int)threadIdx.x, kThreads});
+}
+
+// cluster level d on the way up: add the coarse correction, post-smooth
+// (black first); the tail-finest level's last half-step writes x_out
+template <typename T, int NC>
+__device__ void cluster_up(const TailArgs<T>& A, int d, const ClusterTeam& all) {
+  const TailLevel<T>& L = A.lv[d];
+  const Level<T> op = L.op;
+  const WeightPlanes<T> tr = L.tr;
+  T* x = L.x;
+  prolong_add<T>(op.N, op.M, A.n_pre > 0 ? x : nullptr, x, A.lv[d + 1].x, tr, all);
+  smooth<T, NC>(op, L.b, x, L.xt, false, false, A.n_post, all, d == 0 ? A.x_out : nullptr);
+}
+
+// resident level d on the way down: pre-smooth from zero, residual, restrict
+template <typename T, int NC>
+__device__ void resident_down(const TailArgs<T>& A, int d, T* sm, const BlockTeam& blk) {
+  const Resident<T> R = resident(A, d, sm);
+  const int n = sweep_team(R), M = R.op.M, P = M + 2;
+  if (blk.tid < n) sweeps_resident<T, NC>(R, n, 2 * A.n_pre, 0, nullptr);
+  __syncthreads();
+  for (int p = blk.tid; p < R.op.N * M; p += blk.n) {
+    const int i = p / M, j = p % M, o = R.at(i, j);
+    const T* x = R.xp;
+    R.r[p] = R.b[p] - Loaded<T, NC>(R.op, p, i, j, [&](int ii, int jj) { return x[o + (ii - i) * P + jj - j]; }).apply();
+  }
+  blk.sync();
+  restrict_to<T, false>(R.op.N, M, R.r, R.tr, resident(A, d + 1, sm).b, blk);
+}
+
+// resident level d on the way up: add the coarse correction, post-smooth
+// (black first); the tail-finest level's last half-step also writes x_out
+template <typename T, int NC>
+__device__ void resident_up(const TailArgs<T>& A, int d, T* sm, const BlockTeam& blk) {
+  const Resident<T> R = resident(A, d, sm), C = resident(A, d + 1, sm);
+  const int M = R.op.M;
+  auto E = [&](int k, int l) { return C.xp[C.at(k, l)]; };
+  for (int p = blk.tid; p < R.op.N * M; p += blk.n) {
+    const int o = R.at(p / M, p % M);
+    R.xp[o] = R.xp[o] + prolong_at<T>(p / M, p % M, E, R.tr);
+  }
+  blk.sync();
+  const int n = sweep_team(R);
+  if (blk.tid < n) sweeps_resident<T, NC>(R, n, 2 * A.n_post, 1, d == 0 ? A.x_out : nullptr);
   __syncthreads();
 }
 
-template <typename T, int NC0, int NC>
-__device__ void smooth(TailArgs<T>& A, int d, bool first_red, int n_sweeps) {
-  for (int s = 0; s < n_sweeps; ++s) {
-    if (d == 0) {
-      half_step<T, NC0>(A.lv[0], first_red);
-      half_step<T, NC0>(A.lv[0], !first_red);
-    } else {
-      half_step<T, NC>(A.lv[d], first_red);
-      half_step<T, NC>(A.lv[d], !first_red);
-    }
+// block 0: the cycle over the resident levels, then the hand-off copy of
+// the first one's iterate to device memory when cluster levels lie above
+template <typename T, int NC0>
+__device__ void resident_cycle(const TailArgs<T>& A, T* sm) {
+  const int nl = A.n_levels, nc = A.n_cluster;
+  const BlockTeam blk{(int)threadIdx.x, kThreads};
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int d = nc; d < nl - 1; ++d) {
+    if (d == 0) resident_down<T, NC0>(A, d, sm, blk);
+    else resident_down<T, 9>(A, d, sm, blk);
+  }
+  {
+    const Resident<T> R = resident(A, nl - 1, sm);
+    const int n = sweep_team(R);
+    if (blk.tid < n) sweeps_resident<T, 9>(R, n, 4 * kCoarsePairs, 2, nullptr);
+    __syncthreads();
+  }
+  for (int d = nl - 2; d >= nc; --d) {
+    if (d == 0) resident_up<T, NC0>(A, d, sm, blk);
+    else resident_up<T, 9>(A, d, sm, blk);
+  }
+  if (nc > 0) {
+    const Resident<T> R = resident(A, nc, sm);
+    T* out = A.lv[nc].x;
+    const int M = R.op.M;
+    for (int p = blk.tid; p < R.op.N * M; p += blk.n) out[p] = R.xp[R.at(p / M, p % M)];
   }
 }
 
 template <typename T, int NC0>
-__global__ void __launch_bounds__(kThreads) tail_cycle_kernel(TailArgs<T> A) {
-  const int nl = A.n_levels;
-  // descent: pre-smooth from zero, residual, restrict
-  for (int d = 0; d < nl - 1; ++d) {
-    TailLevel<T>& L = A.lv[d];
-    const int N = L.op.N, M = L.op.M;
-    for (int p = threadIdx.x; p < N * M; p += kThreads) L.x[p] = T(0);
-    __syncthreads();
-    smooth<T, NC0, 9>(A, d, true, A.n_pre);
-    if (d == 0) residual<T, NC0>(L);
-    else residual<T, 9>(L);
-    TailLevel<T>& Cl = A.lv[d + 1];
-    const T* r = L.r;
-    auto R = [&](int i, int j) { return ld(r, i, j, N, M); };
-    for (int p = threadIdx.x; p < Cl.op.N * Cl.op.M; p += kThreads)
-      Cl.b[p] = restrict_at<T>(p / Cl.op.M, p % Cl.op.M, R, L.tr);
-    __syncthreads();
+__global__ void __launch_bounds__(kThreads, 1) tail_cycle_kernel(const __grid_constant__ TailArgs<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const bool lead = cluster.block_rank() == 0;
+  const int nb = (int)cluster.num_blocks();
+  const ClusterTeam all{(int)((nb - 1 - cluster.block_rank()) * kThreads + threadIdx.x), nb * kThreads};
+  const int nl = A.n_levels, nc = A.n_cluster;
+  // block 0 holds the cluster's last points, so it has none on a cluster
+  // level of at most (nb - 1) kThreads points: it stages the resident levels
+  // at the first such level, else at once
+  int stage_at = -1;
+  for (int d = 0; d < nc && d < nl - 1 && stage_at < 0; ++d)
+    if (A.lv[d].op.N * A.lv[d].op.M <= (nb - 1) * kThreads) stage_at = d;
+  if (lead && nc < nl && stage_at < 0) stage_resident<T, NC0>(A, sm);
+  // descent over the cluster levels
+  for (int d = 0; d < nc && d < nl - 1; ++d) {
+    if (lead && nc < nl && d == stage_at) stage_resident<T, NC0>(A, sm);
+    if (d == 0) cluster_down<T, NC0>(A, d, sm, all);
+    else cluster_down<T, 9>(A, d, sm, all);
   }
-  // coarsest: symmetric forward+reverse sweep pairs from zero
-  {
-    TailLevel<T>& L = A.lv[nl - 1];
-    for (int p = threadIdx.x; p < L.op.N * L.op.M; p += kThreads) L.x[p] = T(0);
-    __syncthreads();
-    for (int s = 0; s < kCoarsePairs; ++s) {
-      half_step<T, 9>(L, true);
-      half_step<T, 9>(L, false);
-      half_step<T, 9>(L, false);
-      half_step<T, 9>(L, true);
-    }
+  if (nc == nl) {   // the coarsest level is a cluster level
+    const TailLevel<T>& L = A.lv[nl - 1];
+    const Level<T> op = L.op;
+    coarsest<T>(op, L.b, L.x, L.xt, all);
+  } else {
+    if (lead) resident_cycle<T, NC0>(A, sm);
+    if (nc == 0) return;
+    all.sync();
   }
-  // ascent: prolongate + correct, post-smooth (black first)
-  for (int d = nl - 2; d >= 0; --d) {
-    TailLevel<T>& L = A.lv[d];
-    const TailLevel<T>& Cl = A.lv[d + 1];
-    const int N = L.op.N, M = L.op.M;
-    const T* ec = Cl.x;
-    const int Nc = Cl.op.N, Mc = Cl.op.M;
-    auto E = [&](int k, int l) { return ld(ec, k, l, Nc, Mc); };
-    for (int p = threadIdx.x; p < N * M; p += kThreads)
-      L.x[p] = L.x[p] + prolong_at<T>(p / M, p % M, E, L.tr);
-    __syncthreads();
-    smooth<T, NC0, 9>(A, d, false, A.n_post);
+  // ascent over the cluster levels
+  for (int d = min(nc, nl - 1) - 1; d >= 0; --d) {
+    if (d == 0) cluster_up<T, NC0>(A, d, all);
+    else cluster_up<T, 9>(A, d, all);
   }
-  const TailLevel<T>& L0 = A.lv[0];
-  for (int p = threadIdx.x; p < L0.op.N * L0.op.M; p += kThreads) A.x_out[p] = L0.x[p];
 }
 
 template <typename T>
@@ -196,6 +549,20 @@ int setup(int ncoef0, const void* const* op0, int N, int M, int n_levels, void* 
   return cudaGetLastError();
 }
 
+// one launch of the cycle kernel, raising its shared-memory limit first
+// where this launch needs more than an earlier one
+template <typename T, int NC0>
+int launch_cycle(const TailArgs<T>& A, int n_blocks, size_t smem, cudaStream_t stream) {
+  static size_t smem_set = 0;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(tail_cycle_kernel<T, NC0>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  return launch_cluster(tail_cycle_kernel<T, NC0>, n_blocks, smem, stream, A);
+}
+
 template <typename T>
 int cycle(int ncoef0, const void* const* op0, const void* buf, const void* b, void* x_out,
           void* scratch, int N, int M, int n_levels, int n_pre, int n_post,
@@ -208,11 +575,13 @@ int cycle(int ncoef0, const void* const* op0, const void* buf, const void* b, vo
   A.x_out = static_cast<T*>(x_out);
   const T* p = static_cast<const T*>(buf);
   T* s = static_cast<T*>(scratch);
+  A.n_cluster = n_levels;
   for (int d = 0; d < n_levels; ++d) {
     TailLevel<T>& L = A.lv[d];
     L.op.N = N;
     L.op.M = M;
     const size_t S = (size_t)N * M;
+    if (S <= (size_t)kResidentPoints && A.n_cluster == n_levels) A.n_cluster = d;
     if (d == 0)
       for (int k = 0; k < ncoef0; ++k) L.op.a[k] = static_cast<const T*>(op0[k]);
     // scratch per level: x, xt, r, and b below the tail-finest level
@@ -233,9 +602,31 @@ int cycle(int ncoef0, const void* const* op0, const void* buf, const void* b, vo
       M = Mc;
     }
   }
-  if (ncoef0 == 5) tail_cycle_kernel<T, 5><<<1, kThreads, 0, stream>>>(A);
-  else tail_cycle_kernel<T, 9><<<1, kThreads, 0, stream>>>(A);
-  return cudaGetLastError();
+  // shared memory of the resident levels (the layout of Resident): 9
+  // coefficient planes, 8 weight planes, two zero-ringed buffers, b and r.
+  // Levels of at most 33^2 points need under 180 KB in double.
+  size_t smem = 0;
+  for (int d = A.n_cluster; d < n_levels; ++d) {
+    TailLevel<T>& L = A.lv[d];
+    L.smem = (int)(smem / sizeof(T));
+    smem += sizeof(T) * (11 * L.op.N * L.op.M + 2 * (L.op.N + 2) * (L.op.M + 2));
+    if (d < n_levels - 1) smem += 8 * sizeof(T) * L.tr.Nc * L.tr.Mc;
+  }
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+  const int n_blocks = A.n_cluster == 0 ? 1 : kClusterBlocks;
+  return ncoef0 == 5 ? launch_cycle<T, 5>(A, n_blocks, smem, stream)
+                     : launch_cycle<T, 9>(A, n_blocks, smem, stream);
+}
+
+// n_syncs empty barriers: the cost of the dependent phases alone
+// (chip_smoke.py's floor); n_threads = 0: of the whole cluster, else a named
+// barrier of each block's first n_threads threads (kThreads: the block)
+__global__ void __launch_bounds__(kThreads) sync_probe_kernel(int n_syncs, int n_threads) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  if (n_threads == 0)
+    for (int s = 0; s < n_syncs; ++s) cluster.sync();
+  else if ((int)threadIdx.x < n_threads)
+    for (int s = 0; s < n_syncs; ++s) BlockTeam{(int)threadIdx.x, n_threads}.sync();
 }
 
 }  // namespace
@@ -260,4 +651,12 @@ extern "C" int fs_tail_cycle(int dtype, int ncoef0, const void* const* op0, cons
   return dtype == 0
       ? fs::cycle<float>(ncoef0, op0, buf, b, x_out, scratch, N, M, n_levels, n_pre, n_post, s)
       : fs::cycle<double>(ncoef0, op0, buf, b, x_out, scratch, N, M, n_levels, n_pre, n_post, s);
+}
+
+// n_syncs empty barriers in one cluster of n_blocks blocks of 1024 threads:
+// cluster barriers (n_threads = 0) or named barriers of each block's first
+// n_threads threads (a multiple of 32)
+extern "C" int fs_sync_probe(int n_blocks, int n_syncs, int n_threads, void* stream) {
+  return fs::launch_cluster(fs::sync_probe_kernel, n_blocks, 0, static_cast<cudaStream_t>(stream),
+                            n_syncs, n_threads);
 }

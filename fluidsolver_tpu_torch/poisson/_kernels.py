@@ -54,6 +54,8 @@ _SIGNATURES = {
     # dtype, ncoef0, op0, buf, b, x_out, scratch, N, M, n_levels, n_pre,
     # n_post, stream
     "fs_tail_cycle": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # n_blocks, n_syncs, n_threads, stream (empty barriers, a measurement probe)
+    "fs_sync_probe": (_I, _I, _I, _P),
     # dtype, op, x, r, p, rz, N, M, x_out, r_out, Ap, part, scal, stream
     "fs_step_ab": (_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
     # dtype, r, z_raw, p, rz_prev, sum_r, singular, n, z_out, p_out, part,
@@ -83,29 +85,31 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libfs_kernels_{h.hexdigest()[:16]}.so"
+        h.update((csrc / name).read_bytes())
+    return build_dir / f"libfs_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the library if it is not built yet; returns its path. Each
-    source compiles in its own ``nvcc`` process, all started together, and
-    the objects are linked into one shared library. With ``verbose``,
-    ptxas reports registers, shared memory and spills."""
-    so = library_path()
+def build(verbose: bool = False, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the library of the sources in ``csrc`` (the package's own
+    by default; another checkout's for an A/B run) into ``build_dir`` if it
+    is not built yet; returns its path. Each source compiles in its own
+    ``nvcc`` process, all started together, and the objects are linked into
+    one shared library. With ``verbose``, ptxas reports registers, shared
+    memory and spills."""
+    so = library_path(csrc, build_dir)
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    build_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=build_dir))
     nvcc = _nvcc()
     ptxas = ["-Xptxas", "-v"] if verbose else []
     jobs = []
     for src in SOURCES:
-        cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", str(CSRC / src), "-o", str(work / (src + ".o"))]
+        cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", str(csrc / src), "-o", str(work / (src + ".o"))]
         jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                            text=True)))
     log, failed = [], []
@@ -121,7 +125,7 @@ def build(verbose: bool = False) -> Path:
         log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             failed.append(f"link ({proc.returncode}):\n{proc.stderr[-3000:]}")
-    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    (build_dir / "build.log").write_text("\n".join(log))
     if failed:
         shutil.rmtree(work, ignore_errors=True)
         raise RuntimeError("nvcc failed: " + "\n".join(failed))

@@ -7,9 +7,11 @@ The solvers run to tol 1e-11, where their iterates agree with the JAX
 package's to 1e-8 of max|x|. Iteration counts agree within 3, or within
 10% for the weakly preconditioned runs of several hundred iterations on
 the 1000:1 random checkerboard, where the order of the sums moves the
-count. With "boxmg" the counts are not compared: the JAX package's CPU
-BoxMG solves these boxes exactly with a dense inverse, the port's sweeps
-its coarse tail (tests/test_torch_slice.py). MG-as-solver runs at 1:1:
+count. With "boxmg" the JAX package's CPU hierarchy would solve these
+boxes exactly with a dense inverse, where the port sweeps its coarsest
+level COARSE_SWEEPS times (as the JAX package's TPU tail does); the JAX
+reference is therefore given its hierarchy without the dense inverse, and
+its counts are compared too. MG-as-solver runs at 1:1:
 the stationary PC-Galerkin V-cycle stalls at 1000:1 (test_krylov.py), and
 so does the port's BoxMG, whose swept coarsest level leaves a contraction
 of ~0.98 per cycle.
@@ -26,6 +28,7 @@ import torch
 
 from fluidsolver_tpu.core import bc as jbc
 from fluidsolver_tpu.core.grid import make_grid as jmake_grid
+from fluidsolver_tpu.poisson import boxmg as jbox
 from fluidsolver_tpu.poisson import cg as jcg
 from fluidsolver_tpu.poisson import direct as jdirect
 from fluidsolver_tpu.poisson import krylov as jkrylov
@@ -81,7 +84,11 @@ def _jax_solver(method, precond, **kw):
               "mgsolve": jkrylov.solve_mg}[method]
 
     def run(op, b, x0):
-        M_inv, _ = jcg.make_m_inv(op, b.dtype, precond, n_pre=2, n_post=2)
+        levels = None
+        if precond == "boxmg":
+            # the port's structure: no dense coarsest inverse (see the module doc)
+            levels = [dataclasses.replace(lv, coarse_inv=None) for lv in jbox.build_hierarchy(op)]
+        M_inv, _ = jcg.make_m_inv(op, b.dtype, precond, levels=levels, n_pre=2, n_post=2)
         return jsolve(op, b, M_inv=M_inv, x0=x0, **kw)
 
     return jax.jit(run)
@@ -120,8 +127,7 @@ def test_solver_matches_jax(method, precond, pin):
     if pin is None:
         assert abs(float(x.mean())) < 1e-12
     assert max_rel(x, jx) <= TOL, max_rel(x, jx)
-    if precond != "boxmg":
-        assert abs(it - jit) <= max(3, jit // 10), (it, jit)
+    assert abs(it - jit) <= max(3, jit // 10), (it, jit)
 
 
 @pytest.mark.parametrize("method", SOLVERS)

@@ -257,6 +257,32 @@ def test_solve_pcg_matches_jax():
     assert np.abs(x.numpy() - jx).max() <= 1e-8 * np.abs(jx).max()
 
 
+def test_boxmg_pcg_iterations_match_jax_tail(monkeypatch):
+    """The port's BoxMG-PCG against the JAX package's run with the port's
+    structure: the JAX hierarchy without its dense coarsest inverse and
+    ``pallas_tail.tail_cycle`` (interpret mode) from level 0, as
+    tests/test_pallas_tail.py runs it. The 64^2 drop operator (1000:1), f64,
+    tol 1e-8: iteration counts within 1, solutions within 1e-8 relative."""
+    jop = drop_operator(64, 64)
+    b = np.random.default_rng(33).normal(size=jop.aC.shape)
+    b = b - b.mean()
+    levels = sweep_levels(jop)
+    tl = [dataclasses.replace(lv) for lv in levels]
+    tl[0].tail = pallas_tail.build_tail_pack(levels, 0)
+    monkeypatch.setattr(pallas_tail, "tail_cycle", functools.partial(pallas_tail.tail_cycle, interpret=True))
+    kw = dict(tol=1e-8, max_iter=100, singular=True, precond="boxmg", n_pre=2, n_post=2)
+    jx, jrel, jit = jcg.solve_pcg(jop, jnp.asarray(b), levels=tl, **kw)
+    op = to_port(jop)
+    port_levels = boxmg.build_hierarchy(op)
+    assert [lv.tail is not None for lv in port_levels] == [True]
+    assert port_levels[0].tail.shapes == tuple(tuple(lv.op.aC.shape) for lv in levels)
+    x, rel, it = cg.solve_pcg(op, T(b), levels=port_levels, **kw)
+    assert float(rel) < 1e-8 and float(jrel) < 1e-8
+    assert abs(it - int(jit)) <= 1, (it, int(jit))
+    jx = np.asarray(jx)
+    assert np.abs(x.numpy() - jx).max() <= 1e-8 * np.abs(jx).max()
+
+
 def test_dispatch_by_device():
     assert _kernels.on_cpu(torch.zeros(1))
     with pytest.raises(ValueError):
