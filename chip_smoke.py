@@ -8,7 +8,8 @@ result line):
   2. the kernel build (one nvcc per source, sm_90a), with its time;
   3. each of the four BoxMG kernels against its plain PyTorch twin on the
      card, in f64 at the CPU tests' tolerances and in f32 at a relative
-     (to max |twin|) tolerance of 1e-5, at the level shapes of a 1026^2
+     (to max |twin|) tolerance of 1e-5 (fused_smooth and tail_cycle:
+     bitwise), at the level shapes of a 1026^2
      and of an odd 1023 x 771 box; kernel and twin times by CUDA events
      (the calls queued behind a device sleep, see time_ms) at the main
      path's shapes; the tail kernels also on a 160^2 tail of 6 levels, a
@@ -19,7 +20,14 @@ result line):
      barrier (its dependency floor); with --parent DIR (a checkout of
      another commit, e.g. the parent unpacked by git archive), that
      commit's tail_cycle built from DIR and timed in turns with this one's
-     (parent, this, this, parent) on the same inputs;
+     (parent, this, this, parent) on the same inputs; fused_smooth at
+     the limits of its tiling (sides a multiple of no tile, a level smaller
+     than a tile, 5- and 9-point, V(1,1) and the deepest halo the wrapper
+     admits), bitwise in f32; its six launches of one bench V-cycle
+     (restrict and ec at 1026^2, 513^2 and 257^2) with each one's time and
+     bound, and the 1026^2 restrict launch split into its half-steps, the
+     residual and the restriction; with --parent DIR, the parent's
+     fused_smooth bitwise against this one's and timed in turns at all six;
   3b. the three VOF kernels (elvira, curvature, overlap) against their twins
      on the bench drop's vf (1026^2 box) and on an odd 1023 x 771 box with
      25 drops: f64 at the CPU tests' tolerances, f32 at the relative 1e-5;
@@ -68,6 +76,7 @@ launches from phase 6, rb_sweep's from phase 7); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -342,14 +351,7 @@ def kernel_phase(device, errors: Errors, tail_start: dict) -> dict:
                 "ec": dict(x0=x0, colors=(False, True, False, True), tr=trt, ec=ec),
             }
             for vname, kw in variants.items():
-                got = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
-                want = cuda_vcycle.fused_smooth_twin(op, b, **kw)
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                rtol = 1e-11 if vname == "restrict" else 0.0
-                atol = 1e-11 if vname == "restrict" else 1e-12
-                errors.compare("fused_smooth", got, want, dtype, rtol, atol, main,
-                               f"{tag} level {lshape} variant {vname}")
+                check_smooth(errors, op, b, kw, main, f"{tag} level {lshape} variant {vname}")
             if main and dtype == torch.float32 and level == 0:
                 kw = variants["restrict"]
                 nm, ncm = lshape[0] * lshape[1], trt.pW.numel()
@@ -359,31 +361,53 @@ def kernel_phase(device, errors: Errors, tail_start: dict) -> dict:
                 bnd = bound(s * (ncoef * nm + 17 * ncm), 540 * ncm, dtype)
                 times["fused_rap"] = (time_ms(lambda: cuda_rap.fused_rap_cuda(op), 20, kernel=True),
                                       time_ms(lambda: cuda_rap.fused_rap_twin(op), 3), *bnd)
-                # restrict variant: op + b + 8 coarse weights in, x + coarse r
-                # out; 4 half-steps, a residual and a restriction, ~55 flops/point
-                bnd = bound(s * ((ncoef + 2) * nm + 9 * ncm), 55 * nm, dtype)
                 times["fused_smooth"] = (
                     time_ms(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), 50, kernel=True),
-                    time_ms(lambda: cuda_vcycle.fused_smooth_twin(op, b, **kw), 10), *bnd)
+                    time_ms(lambda: cuda_vcycle.fused_smooth_twin(op, b, **kw), 10), *smooth_bound(op, kw))
             log(f"  {tag}: level {lshape}: fused_rap and fused_smooth (4 variants) agree")
             op = ct
             level += 1
     return times
 
 
+@functools.cache
+def parent_lib(parent: str) -> ctypes.CDLL:
+    """The kernel library of another checkout ``parent`` (e.g. the parent
+    commit unpacked by git archive), built from its csrc into _build/parent
+    and bound like this commit's."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    so = _kernels.build(csrc=Path(parent) / "fluidsolver_tpu_torch" / "csrc", build_dir=_kernels.BUILD_DIR / "parent")
+    plib = ctypes.CDLL(str(so))
+    for name, argtypes in _kernels._SIGNATURES.items():
+        fn = getattr(plib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return plib
+
+
+@contextlib.contextmanager
+def kernel_library(lib):
+    """Route the port's wrappers through ``lib`` (another checkout's build;
+    None: this commit's) while the block runs."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    saved = _kernels.lib
+    if lib is not None:
+        _kernels.lib = lambda: lib
+    try:
+        yield
+    finally:
+        _kernels.lib = saved
+
+
 def tail_cycle_with(lib, pack, b, n_pre: int, n_post: int):
     """cuda_tail.tail_cycle_cuda through the library ``lib`` (another
-    checkout's build, for an A/B run in one process)."""
-    from fluidsolver_tpu_torch.poisson import _kernels, boxmg
+    checkout's build, for an A/B run in one process; None: this commit's)."""
+    from fluidsolver_tpu_torch.poisson import cuda_tail
 
-    planes = boxmg.coefs(pack.op0)
-    x = torch.empty_like(b)
-    scratch = b.new_empty(sum(4 * n * m for n, m in pack.shapes))
-    rc = lib.fs_tail_cycle(_kernels.dtype_code(b.dtype), len(planes), _kernels.ptrs(planes), pack.buf.data_ptr(),
-                           b.data_ptr(), x.data_ptr(), scratch.data_ptr(), *pack.shapes[0], len(pack.shapes),
-                           n_pre, n_post, _kernels.stream(b.device))
-    require(rc == 0, f"tail_cycle launch failed: cudaError {rc}")
-    return x
+    with kernel_library(lib):
+        return cuda_tail.tail_cycle_cuda(pack, b, n_pre, n_post)
 
 
 def tail_level_split(op, n_rem: int, device, lib=None) -> list:
@@ -392,9 +416,8 @@ def tail_level_split(op, n_rem: int, device, lib=None) -> list:
     operator), through ``lib`` (default: this checkout's kernel): [(start
     shape, levels, device ms)]. Successive differences are the levels'
     shares of the whole tail's time."""
-    from fluidsolver_tpu_torch.poisson import _kernels, cuda_tail
+    from fluidsolver_tpu_torch.poisson import cuda_tail
 
-    lib = lib or _kernels.lib()
     pt = cuda_tail.build_tail_pack_twin(op, n_rem)
     out = []
     for k in range(n_rem - 1):
@@ -452,7 +475,7 @@ def tail_report_phase(device, tail_start: dict, parent) -> None:
     dependency floors; with ``parent`` (a checkout of another commit), the
     same for that commit's kernel, and both timed in turns (parent, this,
     this, parent) on the same inputs."""
-    from fluidsolver_tpu_torch.poisson import _kernels, cuda_tail
+    from fluidsolver_tpu_torch.poisson import cuda_tail
 
     op, n_rem, b = tail_start["op"], tail_start["n_rem"], tail_start["b"]
     log_split("this commit's", tail_level_split(op, n_rem, device))
@@ -466,15 +489,12 @@ def tail_report_phase(device, tail_start: dict, parent) -> None:
         f"barriers = {(nc * b8 + nb * b1 + nw * bw) / 1e3:.4f} ms")
     if parent is None:
         return
-    so = _kernels.build(csrc=Path(parent) / "fluidsolver_tpu_torch" / "csrc", build_dir=_kernels.BUILD_DIR / "parent")
-    plib = ctypes.CDLL(str(so))
-    plib.fs_tail_cycle.argtypes = _kernels._SIGNATURES["fs_tail_cycle"]
-    plib.fs_tail_cycle.restype = ctypes.c_int
+    plib = parent_lib(parent)
     pt = cuda_tail.build_tail_pack_twin(op, n_rem)
     xo, xn = tail_cycle_with(plib, pt, b, 2, 2), cuda_tail.tail_cycle_cuda(pt, b, 2, 2)
     require(torch.equal(xo, xn), "the parent's tail_cycle and this commit's differ")
     runs = [("parent", plib), ("this", None), ("this", None), ("parent", plib)]
-    ms = [time_ms(lambda: tail_cycle_with(lib or _kernels.lib(), pt, b, 2, 2), 50, kernel=True) for _, lib in runs]
+    ms = [time_ms(lambda: tail_cycle_with(lib, pt, b, 2, 2), 50, kernel=True) for _, lib in runs]
     log(f"  tail_cycle at {shapes[0][0]}x{shapes[0][1]} ({n_rem} levels, f32 V(2,2)), device ms in turns: "
         + ", ".join(f"{w} {t:.4f}" for (w, _), t in zip(runs, ms))
         + f"; this / parent = {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
@@ -509,6 +529,150 @@ def tail_domain_phase(device, errors: Errors) -> None:
                 require(dtype == torch.float64 or torch.equal(xk, xt), f"tail_cycle {tag} V{pre_post}: not bitwise")
             log(f"  {tag}: tail_setup and tail_cycle (V(2,2), V(1,1)) agree"
                 + (", tail_cycle bitwise" if dtype == torch.float32 else ""))
+
+
+# ---- phase 3: fused_smooth --------------------------------------------------
+def check_smooth(errors: Errors, op, b, kw, main: bool, what: str) -> None:
+    """fused_smooth's kernel against its twin on one variant: bitwise in
+    f32; f64 within 1e-12 absolute (the restricted residual 1e-11 absolute
+    and relative)."""
+    from fluidsolver_tpu_torch.poisson import cuda_vcycle
+
+    got = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
+    want = cuda_vcycle.fused_smooth_twin(op, b, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    restrict = kw.get("restrict", False)
+    errors.compare("fused_smooth", got, want, b.dtype, 1e-11 if restrict else 0.0, 1e-11 if restrict else 1e-12,
+                   main, what)
+    require(b.dtype == torch.float64 or all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"fused_smooth {what}: not bitwise in f32")
+
+
+def smooth_bound(op, kw) -> tuple:
+    """fused_smooth's bound for the variant ``kw``: the operator's planes,
+    b, x0, the weights and ec read once, x and the residual (fine or
+    coarse) written once; per point 2 ncoef + 3 flops for each half-step of
+    its colour, 2 ncoef for the residual and 6 for the prolongation, per
+    coarse point 16 for the restriction."""
+    from fluidsolver_tpu_torch.poisson import boxmg
+
+    ncoef, dtype = len(boxmg.coefs(op)), op.aC.dtype
+    n, m = op.aC.shape
+    nm, ncm = n * m, ((n + 1) // 2) * ((m + 1) // 2)
+    restrict, residual, ec = kw.get("restrict", False), kw.get("residual", False), kw.get("ec") is not None
+    fine = ncoef + 1 + (kw.get("x0") is not None) + 1 + residual
+    coarse = 8 * (restrict or ec) + restrict + ec
+    flops = (len(kw["colors"]) * (2 * ncoef + 3) / 2 + 2 * ncoef * (restrict or residual) + 6 * ec) * nm \
+        + 16 * restrict * ncm
+    return bound(itemsize(dtype) * (fine * nm + coarse * ncm), flops, dtype)
+
+
+def smooth_variants(tr, x0, ec, n_pre: int, n_post: int) -> dict:
+    """The two launches of a V(n_pre, n_post) cycle on a level above the
+    tail (boxmg.v_cycle): the restriction phase from zero and the
+    prolongation phase from x0."""
+    return {"restrict": dict(colors=(True, False) * n_pre, tr=tr, restrict=True),
+            "ec": dict(x0=x0, colors=(False, True) * n_post, tr=tr, ec=ec)}
+
+
+def bench_smooth_launches(device) -> list:
+    """The six fused_smooth launches of one bench V(2,2) cycle: restrict and
+    ec on each level above the tail of the 1026^2 box (f32, the random jump
+    operator and its Galerkin coarse operators): [(name, op, b, kw)]."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap
+
+    op = random_operator(1026, 1026, seed=13, dtype=torch.float32, device=device)
+    out = []
+    for level in range(above_tail_levels((1026, 1026))):
+        tr, coarse = cuda_rap.fused_rap_twin(op)
+        shape = tuple(op.aC.shape)
+        b = random_field(shape, 100 + level, torch.float32, device)
+        x0 = random_field(shape, 200 + level, torch.float32, device)
+        ec = random_field(tuple(tr.pW.shape), 300 + level, torch.float32, device)
+        for kind, kw in smooth_variants(tr, x0, ec, 2, 2).items():
+            out.append((f"{kind} {shape[0]}x{shape[1]}", op, b, kw))
+        op = coarse
+    return out
+
+
+def smooth_limits_phase(device, errors: Errors) -> None:
+    """fused_smooth against its twin at the limits of its tiling: a 5-point
+    level whose sides are a multiple of no tile (389 x 277), its 9-point
+    Galerkin coarse level (195 x 139), and a 5-point level smaller than a
+    tile (37 x 29); V(1,1) (2 half-steps), the deepest phases the wrapper
+    admits (6 half-steps + restriction, 7 + residual, 8 plain from x0 and
+    with the ec prologue: a halo of MAX_HALO) and the coarsest level's
+    sweep pair (red, black, black, red). Bitwise in f32; f64 as phase 3."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap
+
+    for dtype in (torch.float64, torch.float32):
+        fine = random_operator(389, 277, seed=19, dtype=dtype, device=device)
+        for name, op in (("389x277 5-point", fine), ("195x139 9-point", cuda_rap.fused_rap_twin(fine)[1]),
+                         ("37x29 5-point", random_operator(37, 29, seed=23, dtype=dtype, device=device))):
+            tr = cuda_rap.fused_rap_twin(op)[0]
+            shape = tuple(op.aC.shape)
+            b, x0 = random_field(shape, 400, dtype, device), random_field(shape, 401, dtype, device)
+            ec = random_field(tuple(tr.pW.shape), 402, dtype, device)
+            cases = {f"V(1,1) {k}": kw for k, kw in smooth_variants(tr, x0, ec, 1, 1).items()}
+            cases.update({
+                "6 half-steps + restrict": dict(colors=(True, False) * 3, tr=tr, restrict=True),
+                "7 half-steps + residual": dict(x0=x0, colors=(False, True) * 3 + (False,), residual=True),
+                "8 half-steps plain": dict(x0=x0, colors=(True, False) * 4),
+                "8 half-steps ec": dict(x0=x0, colors=(False, True) * 4, tr=tr, ec=ec),
+                "sweep pair": dict(x0=x0, colors=(True, False, False, True)),
+            })
+            for what, kw in cases.items():
+                check_smooth(errors, op, b, kw, False, f"{str(dtype)[6:]} {name} {what}")
+            log(f"  {str(dtype)[6:]} {name}: fused_smooth agrees on {len(cases)} limit cases"
+                + (", bitwise" if dtype == torch.float32 else ""))
+
+
+def smooth_report_phase(device, parent) -> None:
+    """fused_smooth's six launches of one bench V-cycle, each with its time
+    and bound; the 1026^2 restrict launch split into its half-steps (the
+    plain variant), the residual and the restriction; with ``parent``, the
+    parent's kernel on the same inputs, bitwise against this one's and
+    timed in turns (parent, this, this, parent) at all six launches."""
+    from fluidsolver_tpu_torch.poisson import cuda_vcycle
+
+    def timed(op, b, kw, lib=None):
+        with kernel_library(lib):
+            return time_ms(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), 50, kernel=True)
+
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    lib, stream = _kernels.lib(), _kernels.stream(device)
+    empty = time_ms(lambda: lib.fs_sync_probe(1, 0, 1, stream), 50, kernel=True)
+    log(f"  an empty one-block launch, back to back (the launch floor): {empty:.4f} ms")
+    launches = bench_smooth_launches(device)
+    rows = [(name, timed(op, b, kw), *smooth_bound(op, kw)) for name, op, b, kw in launches]
+    log("  fused_smooth, the six launches of one bench V(2,2) cycle (f32, device ms / bound ms): "
+        + "; ".join(f"{name} {t:.4f} / {bt:.4f} ({by})" for name, t, bt, by in rows)
+        + f"; sum {sum(r[1] for r in rows):.4f} / {sum(r[2] for r in rows):.4f}")
+    _, op, b, kw = launches[0]
+    half = dict(colors=kw["colors"])
+    t_plain, t_res = timed(op, b, half), timed(op, b, dict(half, residual=True))
+    log(f"  fused_smooth {launches[0][0]} split (device ms): the 4 half-steps (plain variant) {t_plain:.4f}, "
+        f"+ residual {t_res:.4f}, + restriction {rows[0][1]:.4f}")
+    if parent is None:
+        return
+    plib = parent_lib(parent)
+    ratios = []
+    for name, op, b, kw in launches:
+        with kernel_library(plib):
+            old = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
+        new = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
+        old, new = (old if isinstance(old, tuple) else (old,)), (new if isinstance(new, tuple) else (new,))
+        require(all(torch.equal(o, w) for o, w in zip(old, new)), f"the parent's fused_smooth and this commit's "
+                f"differ at {name}")
+        ms = [timed(op, b, kw, lib) for lib in (plib, None, None, plib)]
+        ratios.append(ms)
+        log(f"  fused_smooth {name}, device ms in turns: parent {ms[0]:.4f}, this {ms[1]:.4f}, this {ms[2]:.4f}, "
+            f"parent {ms[3]:.4f}; this / parent = {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
+    this, par = sum(m[1] + m[2] for m in ratios) / 2, sum(m[0] + m[3] for m in ratios) / 2
+    log(f"  fused_smooth, six launches summed in turns: this {this:.4f} ms, parent {par:.4f} ms; "
+        f"this / parent = {this / par:.4f} (the parent's kernel bitwise equal at all six)")
 
 
 # ---- phase 3b --------------------------------------------------------------
@@ -1282,7 +1446,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one H100.")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of another commit: also time its tail_cycle against this one's (phase 3)")
+                    help="a checkout of another commit: also time its tail_cycle and fused_smooth against this "
+                         "one's (phase 3)")
     parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1320,6 +1485,8 @@ def main(argv=None) -> int:
         times = kernel_phase(device, errors, tail_start)
         tail_domain_phase(device, errors)
         tail_report_phase(device, tail_start, parent)
+        smooth_limits_phase(device, errors)
+        smooth_report_phase(device, parent)
         phase = "3b VOF kernels vs twins"
         log("phase 3b: VOF kernels against their twins on the card")
         times.update(vof_kernel_phase(device, errors, vf_bench, g_bench))

@@ -129,9 +129,20 @@ def test_fused_rap_twin_matches_pallas(shape, nine):
 _SMOOTH_VARIANTS = ("plain", "residual", "restrict", "ec")
 
 
-@pytest.mark.parametrize("shape", [(63, 41)])
+def smooth_operator(shape):
+    """The operators fused_smooth meets: (63, 41) is the 5-point jump
+    operator of a 63 x 41-cell box (the finest level), (32, 21) the 9-point
+    Galerkin coarse operator of that box's 5-point operator (a coarse level,
+    as at 513^2 and 257^2 in the bench hierarchy)."""
+    if shape == (63, 41):
+        return jump_operator(*shape)
+    fine = to_port(jump_operator(2 * shape[0] - 1, 2 * shape[1] - 1))
+    return to_jax(cuda_rap.fused_rap_twin(fine)[1])
+
+
+@pytest.mark.parametrize("shape", [(63, 41), (32, 21)])
 def test_fused_smooth_twin_matches_pallas(shape):
-    jop = jump_operator(*shape)
+    jop = smooth_operator(shape)
     jtr = jbox.collapse_weights(jop)
     planes = pallas_vcycle.pack_transfer(jtr, jop.aC.shape)
     op, tr = to_port(jop), to_port(jtr)
@@ -172,6 +183,31 @@ def test_fused_smooth_rejects_bad_variants():
         cuda_vcycle.fused_smooth(op, b, colors=(True,), restrict=True)
     with pytest.raises(ValueError):
         cuda_vcycle.fused_smooth(op, b, colors=(True, False) * 4, residual=True)
+
+
+@pytest.mark.parametrize("mode,depth", [("plain", 0), ("residual", 1), ("restrict", 2)])
+def test_fused_smooth_halo_limit(mode, depth):
+    """A phase whose halo (half-steps + residual depth) is MAX_HALO runs and
+    equals its half-steps chained; one half-step more is refused, by the
+    dispatch and by the kernel's wrapper before any launch."""
+    jop = jump_operator(14, 14)
+    op, tr = to_port(jop), to_port(jbox.collapse_weights(jop))
+    b = T(np.random.default_rng(3).normal(size=jop.aC.shape))
+    kw = dict(residual=mode == "residual", restrict=mode == "restrict", tr=tr if mode == "restrict" else None)
+    n = cuda_vcycle.MAX_HALO - depth
+    colors = (True, False) * (n // 2) + (True,) * (n % 2)
+    got = cuda_vcycle.fused_smooth(op, b, colors=colors, **kw)
+    x = torch.zeros_like(b)
+    for red in colors:
+        x = boxmg.color_update(op, x, b, red)
+    want = {"plain": x, "residual": (x, b - boxmg.apply_any(op, x)),
+            "restrict": (x, boxmg.restrict_box(tr, b - boxmg.apply_any(op, x)))}[mode]
+    got, want = (got, want) if mode != "plain" else ((got,), (want,))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        cuda_vcycle.fused_smooth(op, b, colors=colors + (False,), **kw)
+    with pytest.raises(ValueError):
+        cuda_vcycle.fused_smooth_cuda(op, b, colors=colors + (False,), **kw)
 
 
 @pytest.mark.parametrize("shape,deep,pre_post", [((30, 22), False, (1, 1)), ((62, 30), True, (2, 2))])
