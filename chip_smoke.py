@@ -41,7 +41,15 @@ result line):
      step_c singular or not, with and without p; step_ab with alpha = 1,
      so that its update stands far above the f32 bound; step_init cold,
      warm with a kept and with a rejected guess, singular or not; times at
-     the main path's shapes;
+     the main path's shapes; step_ab and step_c (one cooperative launch
+     each) also where their virtual grid of summation differs: 64^2 (16
+     virtual blocks), 37 x 29 (n not a multiple of 256), 2050 x 1026 (more
+     points a thread than it holds in registers) and 1026^2 f64 (fewer
+     resident blocks than virtual ones), and each called twice with
+     bitwise-equal results; with --parent DIR, the parent's step_ab and
+     step_c on the same inputs bitwise equal to this commit's (every
+     output and scalar, f64 and f32, every shape above, all four forms of
+     step_c) and timed in turns with them at 1026^2 f32;
   3d. the red-black sweep kernel (rb_sweep) against its twin at every level
      shape of the "mg" hierarchy of the 1026^2 and 1023 x 771 boxes, both
      orders, from a zero and a random x: f64 at the CPU tests' 1e-12, f32 at
@@ -63,7 +71,9 @@ result line):
      ms/step, p_iter, host syncs, VOF volume error, vf bounds and volume
      drift, max |div|, the exact launch counts of its eleven kernels, and a
      profiler split of 3 steps (kernels, rest of the VOF stage, pressure
-     solve, other work, idle share);
+     solve, other work, idle share), in which the profiler must see one
+     device kernel per step_ab and per step_c call, and their in-path
+     device time per call;
   7. the same configuration on PCG + "mg" (the JAX package's default
      preconditioner), 10 steps: the phase 6 report, the solves that stopped
      at the iteration cap or above their tolerance, the exact launch counts
@@ -80,6 +90,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import statistics
@@ -377,13 +388,21 @@ def parent_lib(parent: str) -> ctypes.CDLL:
     and bound like this commit's."""
     from fluidsolver_tpu_torch.poisson import _kernels
 
-    so = _kernels.build(csrc=Path(parent) / "fluidsolver_tpu_torch" / "csrc", build_dir=_kernels.BUILD_DIR / "parent")
-    plib = ctypes.CDLL(str(so))
+    return load_library(_kernels.build(csrc=Path(parent) / "fluidsolver_tpu_torch" / "csrc",
+                                       build_dir=_kernels.BUILD_DIR / "parent"))
+
+
+def load_library(so) -> ctypes.CDLL:
+    """A kernel library built from another checkout's csrc, bound with this
+    commit's signatures."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    lib = ctypes.CDLL(str(so))
     for name, argtypes in _kernels._SIGNATURES.items():
-        fn = getattr(plib, name)
+        fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return plib
+    return lib
 
 
 @contextlib.contextmanager
@@ -869,30 +888,85 @@ def momentum_inputs(shape, seed: int, dtype, device) -> list:
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
 
 
+# f64 tolerances (rtol, atol) per output, those of tests/test_torch_fused.py
+TOL_AB = ((1e-12, 1e-12), (1e-10, 1e-9), (1e-12, 0.0), (1e-10, 0.0), (1e-9, 1e-9))
+TOL_C = ((1e-12, 1e-13), (1e-9, 1e-10), (1e-10, 1e-12))
+TOL_INIT = ((1e-13, 1e-13), (1e-13, 1e-12), (1e-12, 0.0), (1e-11, 1e-13), (1e-10, 1e-11))
+TOL_MOM = ((0.0, 1e-11), (0.0, 1e-11), (0.0, 1e-12), (0.0, 1e-12))
+
+
+def check_outputs(errors: Errors, worst: dict, name, got, want, tols, terms, dtype, main, what) -> None:
+    """Output k against the twin's; a scalar's f32 scale is the larger of
+    |twin| and the two-norm of the terms it sums (terms[k]). Keeps the
+    worst error over that scale in ``worst``, vectors and scalars apart."""
+    for k, (g, w, (rtol, atol)) in enumerate(zip(got, want, tols)):
+        scale = float(w.abs().max())
+        if g.dim() == 0 and terms[k] is not None:
+            scale = max(scale, float(terms[k].double().norm()))
+        err = errors.compare(name, [g], [w], dtype, rtol, atol, main, f"{what} output {k}", scale=scale)
+        slot = worst.setdefault(name, [0.0, 0.0])
+        slot[g.dim() == 0] = max(slot[g.dim() == 0], err / max(scale, 1e-300))
+
+
+def cg_inputs(shape, dtype, device) -> dict:
+    """The random-jump operator of ``shape`` and the vectors of phase 3c:
+    x, r, p, a noise field, z_raw correlated with r (as a preconditioned
+    residual is: <r, z> > 0), Ap, rz_ab = <p, Ap> (alpha = 1) and sum(r)."""
+    from fluidsolver_tpu_torch.poisson.linsys import apply_op
+
+    op = random_operator(*shape, seed=13, dtype=dtype, device=device)
+    x, r, p, noise, noise2 = (random_field(shape, 400 + k, dtype, device) for k in range(5))
+    Ap = apply_op(op, p)
+    return dict(op=op, x=x, r=r, p=p, noise=noise, z_raw=r + 0.5 * noise2, Ap=Ap, rz_ab=torch.sum(p * Ap),
+                sum_r=torch.sum(r))
+
+
+def step_c_forms(inp: dict, n: int):
+    """step_c's four forms, singular or not, with p (the iteration) and
+    without (the init); rz_prev = n keeps beta near 1, so z and beta p both
+    show in p'. Yields (what, args); the last is the bench's form."""
+    rz_prev = torch.tensor(float(n), dtype=inp["r"].dtype, device=inp["r"].device)
+    for singular in (False, True):
+        for with_p in (False, True):
+            yield (f"singular={singular} p={'given' if with_p else 'None'}",
+                   (inp["r"], inp["z_raw"], inp["p"] if with_p else None, rz_prev, singular))
+
+
+def check_cg(errors: Errors, worst: dict, inp: dict, dtype, main: bool, tag: str) -> None:
+    """step_ab and step_c (four forms) against their twins, and each kernel
+    called twice: the two results bitwise equal."""
+    from fluidsolver_tpu_torch.poisson import cuda_cg
+
+    op, x, r, p, rz_ab = inp["op"], inp["x"], inp["r"], inp["p"], inp["rz_ab"]
+    # step_ab with rz = <p, Ap>, so alpha = 1: x' - x = p and r' - r = -Ap
+    # stand far above the f32 bound, and a kernel that skipped an axpy or
+    # got alpha wrong would fail
+    got = cuda_cg.step_ab_cuda(op, x, r, p, rz_ab)
+    want = cuda_cg.step_ab_twin(op, x, r, p, rz_ab)
+    again = cuda_cg.step_ab_cuda(op, x, r, p, rz_ab)
+    check_outputs(errors, worst, "step_ab", got, want, TOL_AB,
+                  (None, None, p * inp["Ap"], want[1] ** 2, want[1]), dtype, main, tag)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"step_ab {tag}: two calls differ")
+    for what, new, old in (("x", got[0], x), ("r", got[1], r)):
+        moved = float((new - old).abs().max())
+        require(moved > 1e3 * F32_RTOL * float(new.abs().max()),
+                f"step_ab {tag}: the update of {what} ({moved:.3e}) is not above the f32 bound")
+    for what, args in step_c_forms(inp, x.numel()):
+        got = cuda_cg.step_c_cuda(*args, sum_r=inp["sum_r"])
+        want = cuda_cg.step_c_twin(*args, sum_r=inp["sum_r"])
+        again = cuda_cg.step_c_cuda(*args, sum_r=inp["sum_r"])
+        require((got[1] is got[0]) == (args[2] is None), "step_c: p' must be z without p")
+        check_outputs(errors, worst, "step_c", got, want, TOL_C, (None, None, r * inp["z_raw"]), dtype, main,
+                      f"{tag} {what}")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)), f"step_c {tag} {what}: two calls differ")
+
+
 def fused_kernel_phase(device, errors: Errors) -> dict:
     """Kernels 5-8 against their twins. Returns name -> (kernel ms, twin ms,
     bound ms, bound by)."""
     from fluidsolver_tpu_torch.ops import cuda_momentum
     from fluidsolver_tpu_torch.poisson import cuda_cg
     from fluidsolver_tpu_torch.poisson.linsys import apply_op
-
-    # f64 tolerances (rtol, atol) per output, those of tests/test_torch_fused.py
-    tol_ab = ((1e-12, 1e-12), (1e-10, 1e-9), (1e-12, 0.0), (1e-10, 0.0), (1e-9, 1e-9))
-    tol_c = ((1e-12, 1e-13), (1e-9, 1e-10), (1e-10, 1e-12))
-    tol_init = ((1e-13, 1e-13), (1e-13, 1e-12), (1e-12, 0.0), (1e-11, 1e-13), (1e-10, 1e-11))
-    tol_mom = ((0.0, 1e-11), (0.0, 1e-11), (0.0, 1e-12), (0.0, 1e-12))
-
-    def check(name, got, want, tols, terms, dtype, main, what):
-        """Output k against the twin's; a scalar's f32 scale is the larger of
-        |twin| and the two-norm of the terms it sums (terms[k]). Keeps the
-        worst error over that scale, vectors and scalars apart."""
-        for k, (g, w, (rtol, atol)) in enumerate(zip(got, want, tols)):
-            scale = float(w.abs().max())
-            if g.dim() == 0 and terms[k] is not None:
-                scale = max(scale, float(terms[k].double().norm()))
-            err = errors.compare(name, [g], [w], dtype, rtol, atol, main, f"{what} output {k}", scale=scale)
-            slot = worst.setdefault(name, [0.0, 0.0])
-            slot[g.dim() == 0] = max(slot[g.dim() == 0], err / max(scale, 1e-300))
 
     times = {}
     for dtype, shape, main in ((torch.float64, (1026, 1026), True), (torch.float32, (1026, 1026), True),
@@ -901,37 +975,11 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
         s = itemsize(dtype)
         n = shape[0] * shape[1]
         worst = {}
-        op = random_operator(*shape, seed=13, dtype=dtype, device=device)
+        inp = cg_inputs(shape, dtype, device)
+        op, x, r, p, noise, z_raw, sum_r = (inp[k] for k in ("op", "x", "r", "p", "noise", "z_raw", "sum_r"))
         planes = [op.aC, op.aL, op.aR, op.aB, op.aT]
-        x, r, p, noise, noise2 = (random_field(shape, 400 + k, dtype, device) for k in range(5))
-        # z_raw correlated with r, as a preconditioned residual is: <r, z> > 0
-        z_raw = r + 0.5 * noise2
         scalar = functools.partial(torch.tensor, dtype=dtype, device=device)
-
-        # step_ab with rz = <p, Ap>, so alpha = 1: x' - x = p and r' - r =
-        # -Ap stand far above the f32 bound, and a kernel that skipped an
-        # axpy or got alpha wrong would fail
-        Ap = apply_op(op, p)
-        rz_ab = torch.sum(p * Ap)
-        got = cuda_cg.step_ab_cuda(op, x, r, p, rz_ab)
-        want = cuda_cg.step_ab_twin(op, x, r, p, rz_ab)
-        check("step_ab", got, want, tol_ab, (None, None, p * Ap, want[1] ** 2, want[1]), dtype, main, tag)
-        for what, new, old in (("x", got[0], x), ("r", got[1], r)):
-            moved = float((new - old).abs().max())
-            require(moved > 1e3 * F32_RTOL * float(new.abs().max()),
-                    f"step_ab {tag}: the update of {what} ({moved:.3e}) is not above the f32 bound")
-
-        # step_c: singular or not, with p (the iteration) and without (the
-        # init); rz_prev = n keeps beta near 1, so z and beta p both show in p'
-        sum_r = torch.sum(r)
-        for singular in (False, True):
-            for with_p in (True, False):
-                args = (r, z_raw, p if with_p else None, scalar(float(n)), singular)
-                got = cuda_cg.step_c_cuda(*args, sum_r=sum_r)
-                want = cuda_cg.step_c_twin(*args, sum_r=sum_r)
-                require((got[1] is got[0]) == (not with_p), "step_c: p' must be z without p")
-                check("step_c", got, want, tol_c, (None, None, r * z_raw), dtype, main,
-                      f"{tag} singular={singular} p={'given' if with_p else 'None'}")
+        check_cg(errors, worst, inp, dtype, main, tag)
 
         # step_init: cold; warm with a guess near A x = b (kept) and, on the odd
         # box, with a random guess (rejected); singular or not
@@ -944,8 +992,8 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
                 got = cuda_cg.step_init_cuda(op, b, x0, singular)
                 want = cuda_cg.step_init_twin(op, b, x0, singular)
                 b1 = b - b.mean() if singular else b
-                check("step_init", got, want, tol_init, (None, None, b1 ** 2, want[1] ** 2, want[1]),
-                      dtype, main, f"{tag} {what} singular={singular}")
+                check_outputs(errors, worst, "step_init", got, want, TOL_INIT,
+                              (None, None, b1 ** 2, want[1] ** 2, want[1]), dtype, main, f"{tag} {what} singular={singular}")
                 kept = bool(got[0].abs().max() > 0)
                 require(kept == (what == "warm kept"), f"step_init {tag} {what}: guess kept = {kept}")
 
@@ -957,24 +1005,20 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
             kw = dict(dx=hx, dy=hy, rho_eps=1e-3, gx=gravity[0], gy=gravity[1])
             got = cuda_momentum.fused_momentum_cuda(*ins, dt, **kw)
             want = cuda_momentum.fused_momentum_twin(*ins, dt, **kw)
-            check("fused_momentum", got, want, tol_mom, (None,) * 4, dtype, main, f"{tag} gravity={gravity}")
+            check_outputs(errors, worst, "fused_momentum", got, want, TOL_MOM, (None,) * 4, dtype, main,
+                          f"{tag} gravity={gravity}")
         log(f"  {tag}: step_ab, step_c (4 forms), step_init ({len(cases)} x 2 forms) and "
-            "fused_momentum (2 forms) agree; max|kernel - twin| / scale, vectors and scalars: "
-            + ", ".join(f"{k} {v:.2e} {sc:.2e}" for k, (v, sc) in worst.items()))
+            "fused_momentum (2 forms) agree, step_ab and step_c bitwise from call to call; max|kernel - twin| / "
+            "scale, vectors and scalars: " + ", ".join(f"{k} {v:.2e} {sc:.2e}" for k, (v, sc) in worst.items()))
 
         if main and dtype == torch.float32:
-            rz_prev = scalar(float(n))
-            # 5 planes and x, r, p in, x' and r' out; 18 flops per point
-            # (matvec 9, 3 dots 5, 2 axpys 4)
-            bnd = bound(nbytes(*planes, x, r, p, rz_ab) + nbytes(x, r) + 3 * s, 18 * n, dtype)
+            rz_ab, rz_prev = inp["rz_ab"], scalar(float(n))
             times["step_ab"] = (time_ms(lambda: cuda_cg.step_ab_cuda(op, x, r, p, rz_ab), 50, kernel=True),
-                                time_ms(lambda: cuda_cg.step_ab_twin(op, x, r, p, rz_ab), 20), *bnd)
-            # the bench's form (singular, p given): r, z_raw, p in, z and p'
-            # out; 6 flops per point
-            bnd = bound(nbytes(r, z_raw, p, rz_prev, sum_r) + nbytes(z_raw, p) + s, 6 * n, dtype)
+                                time_ms(lambda: cuda_cg.step_ab_twin(op, x, r, p, rz_ab), 20), *step_ab_bound(inp))
             times["step_c"] = (
                 time_ms(lambda: cuda_cg.step_c_cuda(r, z_raw, p, rz_prev, True, sum_r=sum_r), 50, kernel=True),
-                time_ms(lambda: cuda_cg.step_c_twin(r, z_raw, p, rz_prev, True, sum_r=sum_r), 20), *bnd)
+                time_ms(lambda: cuda_cg.step_c_twin(r, z_raw, p, rz_prev, True, sum_r=sum_r), 20),
+                *step_c_bound(inp))
             # the bench's form (warm, singular): 5 planes, b and x0 in, x0' and
             # r0' out; 20 flops per point (2 means, projections, matvec, 4 sums)
             bnd = bound(nbytes(*planes, b_near, x) + nbytes(b_near, x) + 3 * s, 20 * n, dtype)
@@ -990,6 +1034,111 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
                 time_ms(lambda: cuda_momentum.fused_momentum_cuda(*ins, dt, **kw), 50, kernel=True),
                 time_ms(lambda: cuda_momentum.fused_momentum_twin(*ins, dt, **kw), 20), *bnd)
     return times
+
+
+def step_ab_bound(inp: dict) -> tuple:
+    """step_ab's bound: 5 planes and x, r, p in, x' and r' out; 18 flops per
+    point (matvec 9, 3 dots 5, 2 axpys 4)."""
+    op, x = inp["op"], inp["x"]
+    s = x.element_size()
+    return bound(nbytes(op.aC, op.aL, op.aR, op.aB, op.aT, x, inp["r"], inp["p"], inp["rz_ab"]) + 2 * nbytes(x)
+                 + 3 * s, 18 * x.numel(), x.dtype)
+
+
+def step_c_bound(inp: dict) -> tuple:
+    """step_c's bound in the bench's form (singular, p given): r, z_raw, p
+    in, z and p' out; 6 flops per point."""
+    r = inp["r"]
+    s = r.element_size()
+    return bound(3 * nbytes(r) + 2 * s + 2 * nbytes(r) + s, 6 * r.numel(), r.dtype)
+
+
+# step_ab and step_c at the limits of their virtual grid: 16 virtual blocks
+# (64^2), n not a multiple of 256 (37 x 29), points past the ones a thread
+# holds in registers (2050 x 1026)
+CG_LIMIT_SHAPES = ((64, 64), (37, 29), (2050, 1026))
+
+
+def cg_limits_phase(device, errors: Errors) -> None:
+    """step_ab and step_c against their twins, and bitwise from call to
+    call, at CG_LIMIT_SHAPES in f64 and f32."""
+    for dtype in (torch.float64, torch.float32):
+        for shape in CG_LIMIT_SHAPES:
+            tag = f"{str(dtype)[6:]} {shape[0]}x{shape[1]}"
+            worst = {}
+            check_cg(errors, worst, cg_inputs(shape, dtype, device), dtype, False, tag)
+            log(f"  {tag}: step_ab and step_c (4 forms) agree, bitwise from call to call; max|kernel - twin| / "
+                "scale, vectors and scalars: " + ", ".join(f"{k} {v:.2e} {sc:.2e}" for k, (v, sc) in worst.items()))
+
+
+def step_ab_raw(lib, inp: dict, scratch_ap: bool):
+    """fs_step_ab of ``lib`` on ``inp`` (rz = rz_ab): (x', r', scal[:4]). An
+    earlier library's kernel writes an Ap plane (``scratch_ap``)."""
+    from fluidsolver_tpu_torch.poisson import _kernels, cuda_cg
+
+    op, x = inp["op"], inp["x"]
+    x_out, r_out = torch.empty_like(x), torch.empty_like(x)
+    ap = torch.empty_like(x) if scratch_ap else None
+    part, scal = cuda_cg._scratch(x)
+    rc = lib.fs_step_ab(_kernels.dtype_code(x.dtype), _kernels.ptrs(cuda_cg._planes(op)), x.data_ptr(),
+                        inp["r"].data_ptr(), inp["p"].data_ptr(), inp["rz_ab"].data_ptr(), *x.shape,
+                        x_out.data_ptr(), r_out.data_ptr(),
+                        None if ap is None else ap.data_ptr(), part.data_ptr(), scal.data_ptr(),
+                        _kernels.stream(x.device))
+    require(rc == 0, f"fs_step_ab did not launch: cudaError {rc}")
+    return x_out, r_out, scal[:4]
+
+
+def step_c_raw(lib, args, sum_r):
+    """fs_step_c of ``lib`` on step_c's ``args``: (z, p' or None, scal[:3])."""
+    from fluidsolver_tpu_torch.poisson import _kernels, cuda_cg
+
+    r, z_raw, p, rz_prev, singular = args
+    z_out = torch.empty_like(r)
+    p_out = None if p is None else torch.empty_like(r)
+    part, scal = cuda_cg._scratch(r)
+    rc = lib.fs_step_c(_kernels.dtype_code(r.dtype), r.data_ptr(), z_raw.data_ptr(),
+                       None if p is None else p.data_ptr(), rz_prev.data_ptr(),
+                       sum_r.data_ptr() if singular else None, int(singular), r.numel(), z_out.data_ptr(),
+                       None if p_out is None else p_out.data_ptr(), part.data_ptr(), scal.data_ptr(),
+                       _kernels.stream(r.device))
+    require(rc == 0, f"fs_step_c did not launch: cudaError {rc}")
+    return z_out, p_out, scal[:3]
+
+
+def cg_turns(device, old, new) -> None:
+    """step_ab and step_c of the kernel library ``old`` against ``new`` on
+    the same inputs: every vector output and every scalar they write bitwise
+    equal, in f64 and f32 at 1026^2, 1023 x 771 and CG_LIMIT_SHAPES, all
+    four forms of step_c; then both timed in turns (old, new, new, old) in
+    the bench forms at 1026^2 f32, on one set of inputs (which the 50 MB L2
+    holds) and rotating over three (which it does not). ``old``'s step_ab
+    is given the Ap scratch plane that the split kernels write."""
+    for dtype in (torch.float64, torch.float32):
+        for shape in ((1026, 1026), (1023, 771)) + CG_LIMIT_SHAPES:
+            tag = f"{str(dtype)[6:]} {shape[0]}x{shape[1]}"
+            inp = cg_inputs(shape, dtype, device)
+            want, got = step_ab_raw(old, inp, True), step_ab_raw(new, inp, False)
+            require(all(torch.equal(a, b) for a, b in zip(want, got)),
+                    f"step_ab {tag}: the two libraries' outputs differ")
+            for what, args in step_c_forms(inp, inp["x"].numel()):
+                want, got = step_c_raw(old, args, inp["sum_r"]), step_c_raw(new, args, inp["sum_r"])
+                require(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(want, got)),
+                        f"step_c {tag} {what}: the two libraries' outputs differ")
+            log(f"  {tag}: step_ab and step_c (4 forms) bitwise equal to the parent's (every output and scalar)")
+    sets = [cg_inputs((1026, 1026), torch.float32, device) for _ in range(3)]
+    forms = [list(step_c_forms(inp, inp["x"].numel()))[-1][1] for inp in sets]
+    runs = {"step_ab": lambda lib, k: step_ab_raw(lib, sets[k], lib is old),
+            "step_c": lambda lib, k: step_c_raw(lib, forms[k], sets[k]["sum_r"])}
+    for name, run in runs.items():
+        for n_sets, how in ((1, "one input set"), (3, "three input sets in rotation")):
+            ms = []
+            for lib in (old, new, new, old):
+                turn = itertools.count()
+                ms.append(time_ms(lambda: run(lib, next(turn) % n_sets), 48, kernel=True))
+            log(f"  {name} (f32 1026^2, bench form, {how}), device ms in turns: parent {ms[0]:.4f}, "
+                f"this {ms[1]:.4f}, this {ms[2]:.4f}, parent {ms[3]:.4f}; this / parent = "
+                f"{(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
 
 
 # ---- phase 3d --------------------------------------------------------------
@@ -1241,9 +1390,15 @@ def full_size_phase(device) -> None:
 def profile_steps(run_step, n: int):
     """Profile ``n`` calls of ``run_step``. Returns (device time by kernel
     name -> (us, launches), busy us, wall us, range name -> device us). A
-    kernel counts toward a ``twophase.*`` profiler range when it starts
+    kernel counts toward a ``twophase.*`` profiler range, and toward the
+    PCG loop's guard range nested in the pressure range, when it starts
     inside that range's span on the device timeline."""
     from torch.profiler import ProfilerActivity, profile
+
+    from fluidsolver_tpu_torch.poisson import cg
+
+    def is_range(name):
+        return name.startswith("twophase.") or name == cg.GUARD_RANGE
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1252,20 +1407,17 @@ def profile_steps(run_step, n: int):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device
-             if e.name.startswith("twophase.")]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device if is_range(e.name)]
     by_name, ranges = {}, {}
     for e in device:
-        if e.name.startswith("twophase."):
+        if is_range(e.name):
             continue
         us = e.time_range.elapsed_us()
         name = next((k for k, v in TRACE_NAMES.items() if v in e.name), e.name[:70])
         t, c = by_name.get(name, (0.0, 0))
         by_name[name] = (t + us, c + 1)
-        for r, start, end in spans:
-            if start <= e.time_range.start < end:
-                ranges[r] = ranges.get(r, 0.0) + us
-                break
+        for r in {r for r, start, end in spans if start <= e.time_range.start < end}:
+            ranges[r] = ranges.get(r, 0.0) + us
     busy = sum(t for t, _ in by_name.values())
     return by_name, busy, wall_us, ranges
 
@@ -1341,6 +1493,7 @@ def profile_bench(step, state, n: int, kernels) -> None:
     """Profile ``n`` more steps: the wall and device time, the idle share, the
     device time of ``kernels``, of the VOF stage and the pressure solves, and
     the device time by kernel."""
+    from fluidsolver_tpu_torch.poisson import _kernels, cg
     from fluidsolver_tpu_torch.solvers import twophase
 
     holder = [state]
@@ -1348,10 +1501,13 @@ def profile_bench(step, state, n: int, kernels) -> None:
     def one():
         holder[0] = step(holder[0], 1e9)
 
+    _kernels.launches.clear()
     by_name, busy, wall_us, ranges = profile_steps(one, n)
     ours = {k: by_name.get(k, (0.0, 0)) for k in kernels}
+    calls = dict(_kernels.launches)
     vof_total = ranges.get(twophase.VOF_RANGE, 0.0)
     pressure_total = ranges.get(twophase.PRESSURE_RANGE, 0.0)
+    guards = ranges.get(cg.GUARD_RANGE, 0.0)
     vof_kernels = sum(ours[k][0] for k in ("elvira", "curvature", "overlap"))
     log(f"  {n} profiled steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
         f"idle share {1 - busy / wall_us:.3f}")
@@ -1360,7 +1516,13 @@ def profile_bench(step, state, n: int, kernels) -> None:
         f"{ours['fused_momentum'][0] / 1e3:.4f} ms ({ours['fused_momentum'][1]} launches)")
     log(f"    VOF kernels {vof_kernels / 1e3:.4f} ms; rest of the VOF stage "
         f"{(vof_total - vof_kernels) / 1e3:.4f} ms; pressure solves (with the hierarchy) "
-        f"{pressure_total / 1e3:.4f} ms; other work {(busy - vof_total - pressure_total) / 1e3:.4f} ms")
+        f"{pressure_total / 1e3:.4f} ms (of it the PCG loop's guard selects {guards / 1e3:.4f}); other work "
+        f"{(busy - vof_total - pressure_total) / 1e3:.4f} ms")
+    log("    " + "; ".join(f"{k} {ours[k][0] / 1e3:.4f} ms in {ours[k][1]} device kernels for {calls.get(k, 0)} calls, "
+                          f"{ours[k][0] / 1e3 / max(calls.get(k, 0), 1):.5f} ms per call (in path)"
+                          for k in ("step_ab", "step_c")))
+    require(all(ours[k][1] == calls.get(k, 0) > 0 for k in ("step_ab", "step_c")),
+            "step_ab and step_c must each be one device kernel per call")
     log("    device time by kernel (ms, launches):")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"    {t / 1e3:9.4f}  {c:5d}  {name}")
@@ -1446,8 +1608,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one H100.")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of another commit: also time its tail_cycle and fused_smooth against this "
-                         "one's (phase 3)")
+                    help="a checkout of another commit: also time its tail_cycle, fused_smooth, step_ab and "
+                         "step_c against this one's (phases 3, 3c)")
     parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1493,6 +1655,9 @@ def main(argv=None) -> int:
         phase = "3c fused kernels vs twins"
         log("phase 3c: the fused PCG iteration and momentum kernels against their twins on the card")
         times.update(fused_kernel_phase(device, errors))
+        cg_limits_phase(device, errors)
+        if parent is not None:
+            cg_turns(device, parent_lib(parent), _kernels.lib())
         phase = "3d rb_sweep vs twin"
         log("phase 3d: the red-black sweep kernel against its twin on the card")
         times.update(sweep_phase(device, errors))

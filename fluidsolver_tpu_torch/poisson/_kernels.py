@@ -56,7 +56,8 @@ _SIGNATURES = {
     "fs_tail_cycle": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # n_blocks, n_syncs, n_threads, stream (empty barriers, a measurement probe)
     "fs_sync_probe": (_I, _I, _I, _P),
-    # dtype, op, x, r, p, rz, N, M, x_out, r_out, Ap, part, scal, stream
+    # dtype, op, x, r, p, rz, N, M, x_out, r_out, Ap (unused, may be null),
+    # part, scal, stream
     "fs_step_ab": (_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
     # dtype, r, z_raw, p, rz_prev, sum_r, singular, n, z_out, p_out, part,
     # scal, stream

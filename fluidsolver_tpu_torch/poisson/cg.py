@@ -19,15 +19,21 @@ branch (``FS_PALLAS_CG``) has them. On CPU tensors they run their twins.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from fluidsolver_tpu_torch.core import sync
 from fluidsolver_tpu_torch.poisson import boxmg, cuda_cg, mg
 from fluidsolver_tpu_torch.poisson.linsys import StencilOp
 
 _MG = {"mg": mg, "boxmg": boxmg}
+# the profiler range of an iteration's guard selects and bookkeeping, opened
+# only while a profiler records (a range costs about as much host time as a
+# tensor operation)
+GUARD_RANGE = "pcg.guards"
 
 
 def build_precond_levels(op: StencilOp, precond: str):
@@ -99,19 +105,20 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
             break
         x_new, r_new, pAp, rr, sum_r = cuda_cg.step_ab(op, x, r, p, rz)
         _, p_new, rz_new = cuda_cg.step_c(r_new, M_inv(r_new), p, rz, singular, sum_r=sum_r)
-        rel_new = torch.sqrt(rr) / safe_b_norm
-        # breakdown guard: reject the update, keep the last good iterate and
-        # trip the stagnation exit
-        ok = (pAp > 0.0) & torch.isfinite(rel_new) & torch.isfinite(rz_new)
-        x = torch.where(ok, x_new, x)
-        r = torch.where(ok, r_new, r)
-        p = torch.where(ok, p_new, p)
-        rz = torch.where(ok, rz_new, rz)
-        rel = torch.where(ok, rel_new, rel)
-        improved = ok & (rel < best * 0.9999)
-        best = torch.minimum(best, rel)
-        since = torch.where(improved, torch.zeros_like(since),
-                            torch.where(ok, since + 1, torch.full_like(since, STAG_WINDOW)))
-        x_best = torch.where(rel <= best, x, x_best)
+        with record_function(GUARD_RANGE) if torch.autograd._profiler_enabled() else nullcontext():
+            rel_new = torch.sqrt(rr) / safe_b_norm
+            # breakdown guard: reject the update, keep the last good iterate
+            # and trip the stagnation exit
+            ok = (pAp > 0.0) & torch.isfinite(rel_new) & torch.isfinite(rz_new)
+            x = torch.where(ok, x_new, x)
+            r = torch.where(ok, r_new, r)
+            p = torch.where(ok, p_new, p)
+            rz = torch.where(ok, rz_new, rz)
+            rel = torch.where(ok, rel_new, rel)
+            improved = ok & (rel < best * 0.9999)
+            best = torch.minimum(best, rel)
+            since = torch.where(improved, torch.zeros_like(since),
+                                torch.where(ok, since + 1, torch.full_like(since, STAG_WINDOW)))
+            x_best = torch.where(rel <= best, x, x_best)
         k += 1
     return project(x_best), best, k

@@ -4,9 +4,11 @@
 CUDA source: ``csrc/cg.cu``; replaces the TPU kernels
 ``fluidsolver_tpu/poisson/pallas_cg.py:109`` (``step_ab``), ``:287``
 (``step_c``) and ``:462`` (``step_init``), with the contracts of their
-``padded_io=False`` form (the TPU band layout is not ported). Every scalar,
-in or out, is a 0-d tensor on the vectors' device: nothing is read back to
-the host.
+``padded_io=False`` form (the TPU band layout is not ported). ``step_ab``
+and ``step_c`` are one cooperative launch each (a grid-wide barrier between
+their reduction and their update), ``step_init`` a few launches. Every
+scalar, in or out, is a 0-d tensor on the vectors' device: nothing is read
+back to the host.
 
 The plain PyTorch twins follow the kernels' algebra (e.g. the projected dot
 rz_new = <r, z_raw> - mean(z_raw) sum_r, the mean as sum * (1 / n)) and
@@ -63,11 +65,11 @@ def step_ab_cuda(op: StencilOp, x, r, p, rz):
     planes = _planes(op)
     _check(planes + [x, r, p], [rz], x.shape, x)
     N, M = x.shape
-    x_out, r_out, Ap = (torch.empty_like(x) for _ in range(3))
+    x_out, r_out = torch.empty_like(x), torch.empty_like(x)
     part, scal = _scratch(x)
     rc = _kernels.lib().fs_step_ab(
         _kernels.dtype_code(x.dtype), _kernels.ptrs(planes), x.data_ptr(), r.data_ptr(),
-        p.data_ptr(), rz.data_ptr(), N, M, x_out.data_ptr(), r_out.data_ptr(), Ap.data_ptr(),
+        p.data_ptr(), rz.data_ptr(), N, M, x_out.data_ptr(), r_out.data_ptr(), None,
         part.data_ptr(), scal.data_ptr(), _kernels.stream(x.device))
     _kernels.raise_on_error(rc, "step_ab")
     return x_out, r_out, scal[0], scal[1], scal[2]
