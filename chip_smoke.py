@@ -14,13 +14,17 @@ result line):
      (the calls queued behind a device sleep, see time_ms) at the main
      path's shapes; the tail kernels also on a 160^2 tail of 6 levels, a
      66^2 tail with a 5-point finest operator and an odd 129 x 97 tail, f32
-     and f64, V(2,2) and V(1,1) (tail_cycle bitwise in f32); tail_cycle's
-     time on the tails that start at each level of the main path's tail
-     (the per-level split) and the cost of an empty cluster and block
-     barrier (its dependency floor); with --parent DIR (a checkout of
-     another commit, e.g. the parent unpacked by git archive), that
-     commit's tail_cycle built from DIR and timed in turns with this one's
-     (parent, this, this, parent) on the same inputs; fused_smooth at
+     and f64, V(2,2) and V(1,1) (tail_cycle bitwise in f32; tail_setup
+     bitwise from call to call); tail_cycle's time on the tails that start
+     at each level of the main path's tail (the per-level split) and the
+     cost of an empty cluster and block barrier (its dependency floor);
+     tail_setup's dependency floor (an empty cluster launch and its
+     barriers); with --parent DIR (a checkout of another commit, e.g. the
+     parent unpacked by git archive), that commit's tail_setup pack
+     bitwise equal to this one's at the main path's and those three tails,
+     f32 and f64, and its tail_setup and tail_cycle built from DIR and
+     timed in turns with this one's (parent, this, this, parent) on the
+     same inputs; fused_smooth at
      the limits of its tiling (sides a multiple of no tile, a level smaller
      than a tile, 5- and 9-point, V(1,1) and the deepest halo the wrapper
      admits), bitwise in f32; its six launches of one bench V-cycle
@@ -41,15 +45,16 @@ result line):
      step_c singular or not, with and without p; step_ab with alpha = 1,
      so that its update stands far above the f32 bound; step_init cold,
      warm with a kept and with a rejected guess, singular or not; times at
-     the main path's shapes; step_ab and step_c (one cooperative launch
+     the main path's shapes; the three CG kernels (one cooperative launch
      each) also where their virtual grid of summation differs: 64^2 (16
      virtual blocks), 37 x 29 (n not a multiple of 256), 2050 x 1026 (more
      points a thread than it holds in registers) and 1026^2 f64 (fewer
      resident blocks than virtual ones), and each called twice with
-     bitwise-equal results; with --parent DIR, the parent's step_ab and
-     step_c on the same inputs bitwise equal to this commit's (every
-     output and scalar, f64 and f32, every shape above, all four forms of
-     step_c) and timed in turns with them at 1026^2 f32;
+     bitwise-equal results; with --parent DIR, the parent's step_ab,
+     step_c and step_init on the same inputs bitwise equal to this
+     commit's (every output and scalar, f64 and f32, every shape above,
+     all four forms of step_c, all six of step_init) and timed in turns
+     with them at 1026^2 f32;
   3d. the red-black sweep kernel (rb_sweep) against its twin at every level
      shape of the "mg" hierarchy of the 1026^2 and 1023 x 771 boxes, both
      orders, from a zero and a random x: f64 at the CPU tests' 1e-12, f32 at
@@ -72,8 +77,8 @@ result line):
      drift, max |div|, the exact launch counts of its eleven kernels, and a
      profiler split of 3 steps (kernels, rest of the VOF stage, pressure
      solve, other work, idle share), in which the profiler must see one
-     device kernel per step_ab and per step_c call, and their in-path
-     device time per call;
+     device kernel per step_ab, step_c, step_init and tail_setup call, and
+     their in-path device time per call;
   7. the same configuration on PCG + "mg" (the JAX package's default
      preconditioner), 10 steps: the phase 6 report, the solves that stopped
      at the iteration cap or above their tolerance, the exact launch counts
@@ -138,6 +143,9 @@ BOXMG_STEP = tuple(k for k in REPLACES if k != "rb_sweep")
 MG_STEP = tuple(k for k in REPLACES if k not in BOXMG)
 # the names the kernels carry in a profiler trace
 TRACE_NAMES = {k: k + "_kernel" for k in REPLACES}
+# kernels redesigned as one launch per wrapper call (the profiler must see
+# one device kernel per call on the bench step)
+ONE_LAUNCH = ("step_ab", "step_c", "step_init", "tail_setup")
 F32_RTOL = 1e-5
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and
 # non-tensor-core FLOP/s by dtype
@@ -429,6 +437,67 @@ def tail_cycle_with(lib, pack, b, n_pre: int, n_post: int):
         return cuda_tail.tail_cycle_cuda(pack, b, n_pre, n_post)
 
 
+def tail_setup_with(lib, op, n_levels: int):
+    """cuda_tail.build_tail_pack_cuda through the library ``lib`` (None:
+    this commit's)."""
+    from fluidsolver_tpu_torch.poisson import cuda_tail
+
+    with kernel_library(lib):
+        return cuda_tail.build_tail_pack_cuda(op, n_levels)
+
+
+def bench_tail(dtype, device) -> tuple:
+    """The main path's tail: the random-jump operator of the 1026^2 box
+    coarsened by fused_rap_twin down to the level where the tail starts
+    (129^2, 5 levels); (operator, levels)."""
+    from fluidsolver_tpu_torch.poisson import boxmg, cuda_rap
+
+    op = random_operator(1026, 1026, seed=13, dtype=dtype, device=device)
+    level = 0
+    while not boxmg.tail_fits(tuple(op.aC.shape), boxmg._remaining_depth(tuple(op.aC.shape), level)):
+        op = cuda_rap.fused_rap_twin(op)[1]
+        level += 1
+    return op, boxmg._remaining_depth(tuple(op.aC.shape), level)
+
+
+def domain_tails(dtype, device):
+    """Tails across tail_fits' domain: a 160 x 160 tail of 6 levels
+    (9-point), a 66 x 66 tail of 4 levels with a 5-point finest operator
+    (lid_driven(64) and the golden drop), an odd 129 x 97 tail of 5 levels
+    (9-point). Yields (name, operator, levels)."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap
+
+    for name, fine, coarsen, n_levels in (("160x160", (319, 319), True, 6), ("66x66 5-point", (66, 66), False, 4),
+                                         ("129x97", (257, 193), True, 5)):
+        op = random_operator(*fine, seed=17, dtype=dtype, device=device)
+        yield name, cuda_rap.fused_rap_twin(op)[1] if coarsen else op, n_levels
+
+
+def setup_barriers(shapes) -> tuple:
+    """(cluster barriers, block barriers) of one csrc/tail.cu setup: each
+    transfer has a block barrier between its weights and its Galerkin
+    product and ends in a cluster barrier unless it is the last."""
+    return len(shapes) - 2, len(shapes) - 1
+
+
+def tail_setup_turns(device, old, new) -> None:
+    """tail_setup of the kernel library ``old`` against ``new``: the pack
+    bitwise equal at the bench tail and the domain tails, f64 and f32; then
+    both timed in turns (old, new, new, old) at the bench tail in f32."""
+    for dtype in (torch.float64, torch.float32):
+        op, n_rem = bench_tail(dtype, device)
+        for name, op_t, n_levels in [("bench", op, n_rem)] + list(domain_tails(dtype, device)):
+            want, got = tail_setup_with(old, op_t, n_levels), tail_setup_with(new, op_t, n_levels)
+            require(torch.equal(want.buf, got.buf),
+                    f"tail_setup {str(dtype)[6:]} {name} tail: the two libraries' packs differ")
+        log(f"  {str(dtype)[6:]}: tail_setup's pack bitwise equal to the parent's at the bench (129x129, 5 levels), "
+            "160x160 (6 levels), 66x66 5-point and 129x97 tails")
+    op, n_rem = bench_tail(torch.float32, device)
+    ms = [time_ms(lambda: tail_setup_with(lib, op, n_rem), 50, kernel=True) for lib in (old, new, new, old)]
+    log(f"  tail_setup at 129x129 (5 levels, f32), device ms in turns: parent {ms[0]:.4f}, this {ms[1]:.4f}, "
+        f"this {ms[2]:.4f}, parent {ms[3]:.4f}; this / parent = {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
+
+
 def tail_level_split(op, n_rem: int, device, lib=None) -> list:
     """tail_cycle V(2,2) on the tails that start at each level of the tail
     of ``op`` (each built by build_tail_pack_twin from that level's
@@ -471,6 +540,15 @@ def barrier_us(device, n_blocks: int, n_threads: int) -> float:
     return (time_ms(lambda: run(n), 10, kernel=True) - time_ms(lambda: run(0), 10, kernel=True)) / n * 1e3
 
 
+def cluster_launch_ms(device) -> float:
+    """Device time in ms of an empty launch of a cluster of 8 blocks of 1024
+    threads, back to back."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    lib, stream = _kernels.lib(), _kernels.stream(device)
+    return time_ms(lambda: lib.fs_sync_probe(8, 0, 0, stream), 50, kernel=True)
+
+
 def tail_barriers(shapes, n_pre: int, n_post: int) -> tuple:
     """(cluster barriers, block barriers, named barriers of the coarsest
     level's warps) of one csrc/tail.cu cycle: levels of more than 33^2
@@ -491,9 +569,10 @@ def tail_barriers(shapes, n_pre: int, n_post: int) -> tuple:
 
 def tail_report_phase(device, tail_start: dict, parent) -> None:
     """The per-level split of tail_cycle at the main path's tail and its
-    dependency floors; with ``parent`` (a checkout of another commit), the
-    same for that commit's kernel, and both timed in turns (parent, this,
-    this, parent) on the same inputs."""
+    dependency floors, and tail_setup's; with ``parent`` (a checkout of
+    another commit), that commit's tail_setup held bitwise to this one's
+    (tail_setup_turns), and its tail_cycle split, both kernels timed in
+    turns (parent, this, this, parent) on the same inputs."""
     from fluidsolver_tpu_torch.poisson import cuda_tail
 
     op, n_rem, b = tail_start["op"], tail_start["n_rem"], tail_start["b"]
@@ -506,9 +585,15 @@ def tail_report_phase(device, tail_start: dict, parent) -> None:
         f"named barrier of {n_warps} threads {bw:.4f} us; floors: 113 phases (the one-block kernel's) x the "
         f"cluster barrier = {113 * b8 / 1e3:.4f} ms; this kernel's {nc} cluster + {nb} block + {nw} named "
         f"barriers = {(nc * b8 + nb * b1 + nw * bw) / 1e3:.4f} ms")
+    sc, sb = setup_barriers(shapes)
+    launch = cluster_launch_ms(device)
+    log(f"  tail_setup's dependency floor: an empty launch of a cluster of 8 x 1024 threads {launch:.4f} ms + "
+        f"{sc} cluster + {sb} block barriers = {launch + (sc * b8 + sb * b1) / 1e3:.4f} ms (and "
+        f"{2 * (len(shapes) - 1)} dependent rounds of loads, not measured)")
     if parent is None:
         return
     plib = parent_lib(parent)
+    tail_setup_turns(device, plib, None)
     pt = cuda_tail.build_tail_pack_twin(op, n_rem)
     xo, xn = tail_cycle_with(plib, pt, b, 2, 2), cuda_tail.tail_cycle_cuda(pt, b, 2, 2)
     require(torch.equal(xo, xn), "the parent's tail_cycle and this commit's differ")
@@ -521,24 +606,20 @@ def tail_report_phase(device, tail_start: dict, parent) -> None:
 
 
 def tail_domain_phase(device, errors: Errors) -> None:
-    """tail_setup and tail_cycle against their twins across tail_fits'
-    domain: a 160 x 160 tail of 6 levels (9-point), a 66 x 66 tail of 4
-    levels with a 5-point finest operator (lid_driven(64) and the golden
-    drop), an odd 129 x 97 tail of 5 levels (9-point); f32 and f64, V(2,2)
-    and V(1,1); tail_cycle at rtol 1e-12, bitwise in f32."""
-    from fluidsolver_tpu_torch.poisson import cuda_rap, cuda_tail
+    """tail_setup and tail_cycle against their twins on domain_tails, f32
+    and f64, V(2,2) and V(1,1); tail_cycle at rtol 1e-12, bitwise in f32;
+    tail_setup called twice bitwise equal."""
+    from fluidsolver_tpu_torch.poisson import cuda_tail
 
     for dtype in (torch.float64, torch.float32):
-        for name, fine, coarsen, n_levels in (("160x160", (319, 319), True, 6), ("66x66 5-point", (66, 66), False, 4),
-                                             ("129x97", (257, 193), True, 5)):
-            op = random_operator(*fine, seed=17, dtype=dtype, device=device)
-            if coarsen:
-                op = cuda_rap.fused_rap_twin(op)[1]
+        for name, op, n_levels in domain_tails(dtype, device):
             tag = f"{str(dtype)[6:]} {name} ({n_levels} levels)"
             pk = cuda_tail.build_tail_pack_cuda(op, n_levels)
             pt = cuda_tail.build_tail_pack_twin(op, n_levels)
             errors.compare("tail_setup", [pk.buf], [pt.buf], dtype, 1e-10, 1e-10 * float(pt.buf.abs().max()),
                            False, f"{tag} pack")
+            require(torch.equal(pk.buf, cuda_tail.build_tail_pack_cuda(op, n_levels).buf),
+                    f"tail_setup {tag}: two calls differ")
             b = random_field(tuple(op.aC.shape), 900, dtype, device)
             for pre_post in ((2, 2), (1, 1)):
                 xk = cuda_tail.tail_cycle_cuda(pt, b, *pre_post)
@@ -911,14 +992,16 @@ def check_outputs(errors: Errors, worst: dict, name, got, want, tols, terms, dty
 def cg_inputs(shape, dtype, device) -> dict:
     """The random-jump operator of ``shape`` and the vectors of phase 3c:
     x, r, p, a noise field, z_raw correlated with r (as a preconditioned
-    residual is: <r, z> > 0), Ap, rz_ab = <p, Ap> (alpha = 1) and sum(r)."""
+    residual is: <r, z> > 0), Ap, rz_ab = <p, Ap> (alpha = 1), sum(r) and
+    b_near = A x + 0.1 noise (a right-hand side for which x is a good
+    guess)."""
     from fluidsolver_tpu_torch.poisson.linsys import apply_op
 
     op = random_operator(*shape, seed=13, dtype=dtype, device=device)
     x, r, p, noise, noise2 = (random_field(shape, 400 + k, dtype, device) for k in range(5))
     Ap = apply_op(op, p)
     return dict(op=op, x=x, r=r, p=p, noise=noise, z_raw=r + 0.5 * noise2, Ap=Ap, rz_ab=torch.sum(p * Ap),
-                sum_r=torch.sum(r))
+                sum_r=torch.sum(r), b_near=apply_op(op, x) + 0.1 * noise)
 
 
 def step_c_forms(inp: dict, n: int):
@@ -932,9 +1015,20 @@ def step_c_forms(inp: dict, n: int):
                    (inp["r"], inp["z_raw"], inp["p"] if with_p else None, rz_prev, singular))
 
 
+def step_init_forms(inp: dict):
+    """step_init's six forms: cold, warm with a guess near A x = b (kept)
+    and warm with a random right-hand side (rejected), each singular or
+    not. Yields (what, (b, x0, singular)); the last warm kept one is the
+    bench's form."""
+    for what, b, x0 in (("cold", inp["b_near"], None), ("warm rejected", inp["r"], inp["x"]),
+                        ("warm kept", inp["b_near"], inp["x"])):
+        for singular in (False, True):
+            yield f"{what} singular={singular}", (b, x0, singular)
+
+
 def check_cg(errors: Errors, worst: dict, inp: dict, dtype, main: bool, tag: str) -> None:
-    """step_ab and step_c (four forms) against their twins, and each kernel
-    called twice: the two results bitwise equal."""
+    """step_ab, step_c (four forms) and step_init (six forms) against their
+    twins, and each kernel called twice: the two results bitwise equal."""
     from fluidsolver_tpu_torch.poisson import cuda_cg
 
     op, x, r, p, rz_ab = inp["op"], inp["x"], inp["r"], inp["p"], inp["rz_ab"]
@@ -959,6 +1053,16 @@ def check_cg(errors: Errors, worst: dict, inp: dict, dtype, main: bool, tag: str
         check_outputs(errors, worst, "step_c", got, want, TOL_C, (None, None, r * inp["z_raw"]), dtype, main,
                       f"{tag} {what}")
         require(all(torch.equal(a, b) for a, b in zip(got, again)), f"step_c {tag} {what}: two calls differ")
+    for what, (b, x0, singular) in step_init_forms(inp):
+        got = cuda_cg.step_init_cuda(op, b, x0, singular)
+        want = cuda_cg.step_init_twin(op, b, x0, singular)
+        again = cuda_cg.step_init_cuda(op, b, x0, singular)
+        b1 = b - b.mean() if singular else b
+        check_outputs(errors, worst, "step_init", got, want, TOL_INIT,
+                      (None, None, b1 ** 2, want[1] ** 2, want[1]), dtype, main, f"{tag} {what}")
+        require(all(torch.equal(a, c) for a, c in zip(got, again)), f"step_init {tag} {what}: two calls differ")
+        kept = bool(got[0].abs().max() > 0)
+        require(kept == what.startswith("warm kept"), f"step_init {tag} {what}: guess kept = {kept}")
 
 
 def fused_kernel_phase(device, errors: Errors) -> dict:
@@ -966,7 +1070,6 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
     bound ms, bound by)."""
     from fluidsolver_tpu_torch.ops import cuda_momentum
     from fluidsolver_tpu_torch.poisson import cuda_cg
-    from fluidsolver_tpu_torch.poisson.linsys import apply_op
 
     times = {}
     for dtype, shape, main in ((torch.float64, (1026, 1026), True), (torch.float32, (1026, 1026), True),
@@ -976,26 +1079,10 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
         n = shape[0] * shape[1]
         worst = {}
         inp = cg_inputs(shape, dtype, device)
-        op, x, r, p, noise, z_raw, sum_r = (inp[k] for k in ("op", "x", "r", "p", "noise", "z_raw", "sum_r"))
+        op, x, r, p, z_raw, sum_r = (inp[k] for k in ("op", "x", "r", "p", "z_raw", "sum_r"))
         planes = [op.aC, op.aL, op.aR, op.aB, op.aT]
         scalar = functools.partial(torch.tensor, dtype=dtype, device=device)
         check_cg(errors, worst, inp, dtype, main, tag)
-
-        # step_init: cold; warm with a guess near A x = b (kept) and, on the odd
-        # box, with a random guess (rejected); singular or not
-        b_near = apply_op(op, x) + 0.1 * noise
-        cases = [("cold", b_near, None), ("warm kept", b_near, x)]
-        if not main:
-            cases.append(("warm rejected", r, x))
-        for singular in (False, True):
-            for what, b, x0 in cases:
-                got = cuda_cg.step_init_cuda(op, b, x0, singular)
-                want = cuda_cg.step_init_twin(op, b, x0, singular)
-                b1 = b - b.mean() if singular else b
-                check_outputs(errors, worst, "step_init", got, want, TOL_INIT,
-                              (None, None, b1 ** 2, want[1] ** 2, want[1]), dtype, main, f"{tag} {what} singular={singular}")
-                kept = bool(got[0].abs().max() > 0)
-                require(kept == (what == "warm kept"), f"step_init {tag} {what}: guess kept = {kept}")
 
         # fused_momentum, with and without gravity
         ins = momentum_inputs(shape, 31, dtype, device)
@@ -1007,8 +1094,8 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
             want = cuda_momentum.fused_momentum_twin(*ins, dt, **kw)
             check_outputs(errors, worst, "fused_momentum", got, want, TOL_MOM, (None,) * 4, dtype, main,
                           f"{tag} gravity={gravity}")
-        log(f"  {tag}: step_ab, step_c (4 forms), step_init ({len(cases)} x 2 forms) and "
-            "fused_momentum (2 forms) agree, step_ab and step_c bitwise from call to call; max|kernel - twin| / "
+        log(f"  {tag}: step_ab, step_c (4 forms), step_init (6 forms) and fused_momentum (2 forms) agree, "
+            "the CG kernels bitwise from call to call; max|kernel - twin| / "
             "scale, vectors and scalars: " + ", ".join(f"{k} {v:.2e} {sc:.2e}" for k, (v, sc) in worst.items()))
 
         if main and dtype == torch.float32:
@@ -1021,6 +1108,7 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
                 *step_c_bound(inp))
             # the bench's form (warm, singular): 5 planes, b and x0 in, x0' and
             # r0' out; 20 flops per point (2 means, projections, matvec, 4 sums)
+            b_near = inp["b_near"]
             bnd = bound(nbytes(*planes, b_near, x) + nbytes(b_near, x) + 3 * s, 20 * n, dtype)
             times["step_init"] = (
                 time_ms(lambda: cuda_cg.step_init_cuda(op, b_near, x, True), 50, kernel=True),
@@ -1053,37 +1141,35 @@ def step_c_bound(inp: dict) -> tuple:
     return bound(3 * nbytes(r) + 2 * s + 2 * nbytes(r) + s, 6 * r.numel(), r.dtype)
 
 
-# step_ab and step_c at the limits of their virtual grid: 16 virtual blocks
+# the CG kernels at the limits of their virtual grid: 16 virtual blocks
 # (64^2), n not a multiple of 256 (37 x 29), points past the ones a thread
 # holds in registers (2050 x 1026)
 CG_LIMIT_SHAPES = ((64, 64), (37, 29), (2050, 1026))
 
 
 def cg_limits_phase(device, errors: Errors) -> None:
-    """step_ab and step_c against their twins, and bitwise from call to
-    call, at CG_LIMIT_SHAPES in f64 and f32."""
+    """step_ab, step_c and step_init against their twins, and bitwise from
+    call to call, at CG_LIMIT_SHAPES in f64 and f32."""
     for dtype in (torch.float64, torch.float32):
         for shape in CG_LIMIT_SHAPES:
             tag = f"{str(dtype)[6:]} {shape[0]}x{shape[1]}"
             worst = {}
             check_cg(errors, worst, cg_inputs(shape, dtype, device), dtype, False, tag)
-            log(f"  {tag}: step_ab and step_c (4 forms) agree, bitwise from call to call; max|kernel - twin| / "
+            log(f"  {tag}: step_ab, step_c (4 forms) and step_init (6 forms) agree, bitwise from call to call; "
+                "max|kernel - twin| / "
                 "scale, vectors and scalars: " + ", ".join(f"{k} {v:.2e} {sc:.2e}" for k, (v, sc) in worst.items()))
 
 
-def step_ab_raw(lib, inp: dict, scratch_ap: bool):
-    """fs_step_ab of ``lib`` on ``inp`` (rz = rz_ab): (x', r', scal[:4]). An
-    earlier library's kernel writes an Ap plane (``scratch_ap``)."""
+def step_ab_raw(lib, inp: dict):
+    """fs_step_ab of ``lib`` on ``inp`` (rz = rz_ab): (x', r', scal[:4])."""
     from fluidsolver_tpu_torch.poisson import _kernels, cuda_cg
 
     op, x = inp["op"], inp["x"]
     x_out, r_out = torch.empty_like(x), torch.empty_like(x)
-    ap = torch.empty_like(x) if scratch_ap else None
     part, scal = cuda_cg._scratch(x)
     rc = lib.fs_step_ab(_kernels.dtype_code(x.dtype), _kernels.ptrs(cuda_cg._planes(op)), x.data_ptr(),
                         inp["r"].data_ptr(), inp["p"].data_ptr(), inp["rz_ab"].data_ptr(), *x.shape,
-                        x_out.data_ptr(), r_out.data_ptr(),
-                        None if ap is None else ap.data_ptr(), part.data_ptr(), scal.data_ptr(),
+                        x_out.data_ptr(), r_out.data_ptr(), None, part.data_ptr(), scal.data_ptr(),
                         _kernels.stream(x.device))
     require(rc == 0, f"fs_step_ab did not launch: cudaError {rc}")
     return x_out, r_out, scal[:4]
@@ -1106,30 +1192,53 @@ def step_c_raw(lib, args, sum_r):
     return z_out, p_out, scal[:3]
 
 
+def step_init_raw(lib, op, args):
+    """fs_step_init of ``lib`` on step_init's ``args`` (b, x0 or None,
+    singular): (x0', r0', then views of the scalars it defines: bb, rr0 and
+    sum_r0, good, and, singular, the means of b and x0)."""
+    from fluidsolver_tpu_torch.poisson import _kernels, cuda_cg
+
+    b, x0, singular = args
+    x_out, r_out = torch.empty_like(b), torch.empty_like(b)
+    part, scal = cuda_cg._scratch(b)
+    rc = lib.fs_step_init(_kernels.dtype_code(b.dtype), _kernels.ptrs(cuda_cg._planes(op)), b.data_ptr(),
+                          None if x0 is None else x0.data_ptr(), int(singular), *b.shape, x_out.data_ptr(),
+                          r_out.data_ptr(), part.data_ptr(), scal.data_ptr(), _kernels.stream(b.device))
+    require(rc == 0, f"fs_step_init did not launch: cudaError {rc}")
+    return (x_out, r_out, scal[:3], scal[5:6]) + ((scal[3:5],) if singular else ())
+
+
 def cg_turns(device, old, new) -> None:
-    """step_ab and step_c of the kernel library ``old`` against ``new`` on
-    the same inputs: every vector output and every scalar they write bitwise
-    equal, in f64 and f32 at 1026^2, 1023 x 771 and CG_LIMIT_SHAPES, all
-    four forms of step_c; then both timed in turns (old, new, new, old) in
-    the bench forms at 1026^2 f32, on one set of inputs (which the 50 MB L2
-    holds) and rotating over three (which it does not). ``old``'s step_ab
-    is given the Ap scratch plane that the split kernels write."""
+    """step_ab, step_c and step_init of the kernel library ``old`` against
+    ``new`` on the same inputs: every vector output and every scalar they
+    define bitwise equal, in f64 and f32 at 1026^2, 1023 x 771 and
+    CG_LIMIT_SHAPES, all four forms of step_c and all six of step_init;
+    then each timed in turns (old, new, new, old) in the bench forms at
+    1026^2 f32, on one set of inputs (which the 50 MB L2 holds) and
+    rotating over three (which it does not)."""
     for dtype in (torch.float64, torch.float32):
         for shape in ((1026, 1026), (1023, 771)) + CG_LIMIT_SHAPES:
             tag = f"{str(dtype)[6:]} {shape[0]}x{shape[1]}"
             inp = cg_inputs(shape, dtype, device)
-            want, got = step_ab_raw(old, inp, True), step_ab_raw(new, inp, False)
+            want, got = step_ab_raw(old, inp), step_ab_raw(new, inp)
             require(all(torch.equal(a, b) for a, b in zip(want, got)),
                     f"step_ab {tag}: the two libraries' outputs differ")
             for what, args in step_c_forms(inp, inp["x"].numel()):
                 want, got = step_c_raw(old, args, inp["sum_r"]), step_c_raw(new, args, inp["sum_r"])
                 require(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(want, got)),
                         f"step_c {tag} {what}: the two libraries' outputs differ")
-            log(f"  {tag}: step_ab and step_c (4 forms) bitwise equal to the parent's (every output and scalar)")
+            for what, args in step_init_forms(inp):
+                want, got = step_init_raw(old, inp["op"], args), step_init_raw(new, inp["op"], args)
+                require(all(torch.equal(a, b) for a, b in zip(want, got)),
+                        f"step_init {tag} {what}: the two libraries' outputs differ")
+            log(f"  {tag}: step_ab, step_c (4 forms) and step_init (6 forms) bitwise equal to the parent's "
+                "(every output and scalar)")
     sets = [cg_inputs((1026, 1026), torch.float32, device) for _ in range(3)]
     forms = [list(step_c_forms(inp, inp["x"].numel()))[-1][1] for inp in sets]
-    runs = {"step_ab": lambda lib, k: step_ab_raw(lib, sets[k], lib is old),
-            "step_c": lambda lib, k: step_c_raw(lib, forms[k], sets[k]["sum_r"])}
+    inits = [list(step_init_forms(inp))[-1][1] for inp in sets]
+    runs = {"step_ab": lambda lib, k: step_ab_raw(lib, sets[k]),
+            "step_c": lambda lib, k: step_c_raw(lib, forms[k], sets[k]["sum_r"]),
+            "step_init": lambda lib, k: step_init_raw(lib, sets[k]["op"], inits[k])}
     for name, run in runs.items():
         for n_sets, how in ((1, "one input set"), (3, "three input sets in rotation")):
             ms = []
@@ -1520,9 +1629,9 @@ def profile_bench(step, state, n: int, kernels) -> None:
         f"{(busy - vof_total - pressure_total) / 1e3:.4f} ms")
     log("    " + "; ".join(f"{k} {ours[k][0] / 1e3:.4f} ms in {ours[k][1]} device kernels for {calls.get(k, 0)} calls, "
                           f"{ours[k][0] / 1e3 / max(calls.get(k, 0), 1):.5f} ms per call (in path)"
-                          for k in ("step_ab", "step_c")))
-    require(all(ours[k][1] == calls.get(k, 0) > 0 for k in ("step_ab", "step_c")),
-            "step_ab and step_c must each be one device kernel per call")
+                          for k in ONE_LAUNCH if k in kernels))
+    require(all(ours[k][1] == calls.get(k, 0) > 0 for k in ONE_LAUNCH if k in kernels),
+            f"{', '.join(k for k in ONE_LAUNCH if k in kernels)} must each be one device kernel per call")
     log("    device time by kernel (ms, launches):")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"    {t / 1e3:9.4f}  {c:5d}  {name}")
@@ -1608,8 +1717,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one H100.")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of another commit: also time its tail_cycle, fused_smooth, step_ab and "
-                         "step_c against this one's (phases 3, 3c)")
+                    help="a checkout of another commit: also hold its tail_setup, fused_smooth, step_ab, "
+                         "step_c and step_init bitwise to this one's and time them and its tail_cycle "
+                         "against this one's (phases 3, 3c)")
     parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -44,9 +44,17 @@ struct Level {
   int N, M;
 };
 
-template <typename T>
+// p[o]; kL2: through L2 only (__ldcg), for values that other blocks of the
+// same launch write (an SM's L1 is not kept coherent with them)
+template <typename T, bool kL2 = false, typename I>
+__device__ __forceinline__ T ldo(const T* p, I o) {
+  if constexpr (kL2) return __ldcg(p + o);
+  else return p[o];
+}
+
+template <typename T, bool kL2 = false>
 __device__ __forceinline__ T ld(const T* p, int i, int j, int N, int M) {
-  return (i >= 0 && i < N && j >= 0 && j < M) ? p[(size_t)i * M + j] : T(0);
+  return (i >= 0 && i < N && j >= 0 && j < M) ? ldo<T, kL2>(p, (size_t)i * M + j) : T(0);
 }
 
 template <typename T>
@@ -83,27 +91,36 @@ __device__ __forceinline__ T gs_value(const Level<T>& L, size_t o, int i, int j,
 }
 
 // ---- operator-collapsed weights (boxmg.collapse_weights) --------------------
+// the coefficients of fine point o: c[0..4], and c[5..8] for a 9-point
+// operator (zero for a 5-point one)
+template <typename T, int NC, bool kL2>
+__device__ __forceinline__ void coefs_at(const Level<T>& L, size_t o, T c[9]) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) c[k] = k < NC ? ldo<T, kL2>(L.a[k], o) : T(0);
+}
+
 // line weights of fine point (i, j): x-line (pW_full, pE_full) and y-line
-// (pS_full, pN_full); zero outside the level
-template <typename T, int NC>
+// (pS_full, pN_full); zero outside the level. kL2: the level's planes are
+// read through L2 only (ldo).
+template <typename T, int NC, bool kL2 = false>
 __device__ __forceinline__ void line_x(const Level<T>& L, int i, int j, T& pW, T& pE) {
   if (i < 0 || i >= L.N || j < 0 || j >= L.M) { pW = pE = T(0); return; }
-  const size_t o = (size_t)i * L.M + j;
-  const T c = L.a[0][o], w = L.a[1][o], e = L.a[2][o], s = L.a[3][o], n = L.a[4][o];
-  T asw = 0, ase = 0, anw = 0, ane = 0;
-  if (NC == 9) { asw = L.a[5][o]; ase = L.a[6][o]; anw = L.a[7][o]; ane = L.a[8][o]; }
+  T a[9];
+  coefs_at<T, NC, kL2>(L, (size_t)i * L.M + j, a);
+  const T c = a[0], w = a[1], e = a[2], s = a[3], n = a[4];
+  const T asw = a[5], ase = a[6], anw = a[7], ane = a[8];
   const T den = safe(c + n + s);
   pW = -(w + anw + asw) / den;
   pE = -(e + ane + ase) / den;
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool kL2 = false>
 __device__ __forceinline__ void line_y(const Level<T>& L, int i, int j, T& pS, T& pN) {
   if (i < 0 || i >= L.N || j < 0 || j >= L.M) { pS = pN = T(0); return; }
-  const size_t o = (size_t)i * L.M + j;
-  const T c = L.a[0][o], w = L.a[1][o], e = L.a[2][o], s = L.a[3][o], n = L.a[4][o];
-  T asw = 0, ase = 0, anw = 0, ane = 0;
-  if (NC == 9) { asw = L.a[5][o]; ase = L.a[6][o]; anw = L.a[7][o]; ane = L.a[8][o]; }
+  T a[9];
+  coefs_at<T, NC, kL2>(L, (size_t)i * L.M + j, a);
+  const T c = a[0], w = a[1], e = a[2], s = a[3], n = a[4];
+  const T asw = a[5], ase = a[6], anw = a[7], ane = a[8];
   const T den = safe(c + w + e);
   pS = -(s + asw + ase) / den;
   pN = -(n + anw + ane) / den;
@@ -111,26 +128,26 @@ __device__ __forceinline__ void line_y(const Level<T>& L, int i, int j, T& pS, T
 
 // all 8 weights of coarse point (k, l); zero outside the coarse grid and
 // where the defining fine point lies beyond the level (boxmg._pad_to)
-template <typename T, int NC>
+template <typename T, int NC, bool kL2 = false>
 __device__ void collapse_point(const Level<T>& L, int k, int l, T w[8]) {
   const int Nc = (L.N + 1) / 2, Mc = (L.M + 1) / 2;
 #pragma unroll
   for (int q = 0; q < 8; ++q) w[q] = T(0);
   if (k < 0 || k >= Nc || l < 0 || l >= Mc) return;
-  line_x<T, NC>(L, 2 * k + 1, 2 * l, w[kPW], w[kPE]);
-  line_y<T, NC>(L, 2 * k, 2 * l + 1, w[kPS], w[kPN]);
+  line_x<T, NC, kL2>(L, 2 * k + 1, 2 * l, w[kPW], w[kPE]);
+  line_y<T, NC, kL2>(L, 2 * k, 2 * l + 1, w[kPS], w[kPN]);
   const int i = 2 * k + 1, j = 2 * l + 1;
   if (i >= L.N || j >= L.M) return;   // (odd, odd) point beyond the level
-  const size_t o = (size_t)i * L.M + j;
-  const T c = L.a[0][o], we = L.a[1][o], e = L.a[2][o], s = L.a[3][o], n = L.a[4][o];
-  T asw = 0, ase = 0, anw = 0, ane = 0;
-  if (NC == 9) { asw = L.a[5][o]; ase = L.a[6][o]; anw = L.a[7][o]; ane = L.a[8][o]; }
+  T a[9];
+  coefs_at<T, NC, kL2>(L, (size_t)i * L.M + j, a);
+  const T c = a[0], we = a[1], e = a[2], s = a[3], n = a[4];
+  const T asw = a[5], ase = a[6], anw = a[7], ane = a[8];
   // line weights at the four neighbours of (i, j)
   T pS_a, pN_a, pS_b, pN_b, pW_a, pE_a, pW_b, pE_b;
-  line_y<T, NC>(L, i - 1, j, pS_a, pN_a);
-  line_y<T, NC>(L, i + 1, j, pS_b, pN_b);
-  line_x<T, NC>(L, i, j - 1, pW_a, pE_a);
-  line_x<T, NC>(L, i, j + 1, pW_b, pE_b);
+  line_y<T, NC, kL2>(L, i - 1, j, pS_a, pN_a);
+  line_y<T, NC, kL2>(L, i + 1, j, pS_b, pN_b);
+  line_x<T, NC, kL2>(L, i, j - 1, pW_a, pE_a);
+  line_x<T, NC, kL2>(L, i, j + 1, pW_b, pE_b);
   const T cden = safe(c);
   const T vSW = asw + we * pS_a + s * pW_a;
   const T vSE = ase + e * pS_b + s * pE_a;
@@ -156,8 +173,9 @@ __host__ __device__ constexpr PEntry p_entry(int pc, int e) {
 }
 
 // the 9 coarse coefficients of coarse point (K, L); W(q, kk, ll) is weight
-// q at coarse (kk, ll), zero outside the coarse grid
-template <typename T, int NC, typename WAcc>
+// q at coarse (kk, ll), zero outside the coarse grid; kL2: F's planes are
+// read through L2 only (ldo)
+template <typename T, int NC, bool kL2 = false, typename WAcc>
 __device__ void rap_point(const Level<T>& F, int K, int Lc, WAcc W, T out[9]) {
   const int Nc = (F.N + 1) / 2, Mc = (F.M + 1) / 2;
   T acc[9];
@@ -179,7 +197,7 @@ __device__ void rap_point(const Level<T>& F, int K, int Lc, WAcc W, T out[9]) {
         const int alpha = a1 - 2 * p1.sI, beta = b1 - 2 * p1.sJ;
         const int g2 = -p1.sI + (a1 + di - a2) / 2;
         const int d2 = -p1.sJ + (b1 + dj - b2) / 2;
-        const T av = ld(F.a[k], 2 * K + alpha, 2 * Lc + beta, F.N, F.M);
+        const T av = ld<T, kL2>(F.a[k], 2 * K + alpha, 2 * Lc + beta, F.N, F.M);
         const T w1 = p1.w == kOne ? T(1) : W(p1.w, K + g1, Lc + d1);
 #pragma unroll
         for (int e2 = 0; e2 < 4; ++e2) {

@@ -19,33 +19,34 @@
 //
 // The TPU kernels run a (phase, band) grid in order, so a dot product
 // accumulated in phase 0 is complete when phase 1 uses it. Blocks of a CUDA
-// grid run in no order. step_ab and step_c are each one cooperative launch
-// (cudaLaunchAttributeCooperative: every block is resident) split at their
-// reduction by one grid-wide barrier. Before it, each thread forms its
+// grid run in no order. Each kernel here is one cooperative launch
+// (cudaLaunchAttributeCooperative: every block is resident) split at its
+// reductions by grid-wide barriers. Before a barrier, each thread forms its
 // points' values and keeps them in registers (step_ab: Ap and p, with x and
-// r loaded for after the barrier; step_c: z_raw and p), and each block
-// writes its partial sums. After it, every block reduces the partials itself
-// to the same scalars (alpha; mean and beta) and its threads finish their
-// points from the registers. So each reads and writes each vector once, the
-// bytes bound; there is no Ap plane. step_ab's second pair of sums (rr,
-// sum_r) is reduced by the last block to finish, picked by an integer
-// ticket. What remains above the bound is mostly fixed: the launch, the
-// barrier and the dependent L2 round trips of the reductions, about 5-7 us
-// a call on an H100 (tools/torch_cg_times.py). step_init is still split at
-// its reductions into launches on one stream: a pass kernel writes
-// per-block partial sums, and a one-block finalize kernel adds them and
-// derives the mean and the warm-start test.
+// r loaded for after the barrier; step_c: z_raw and p; step_init: b and x0,
+// then b1, x1 and r_ws), and each block writes its partial sums. After it,
+// every block reduces the partials itself to the same scalars (alpha; mean
+// and beta; the means, then the warm-start test) and its threads finish
+// their points from the registers. So each reads and writes each vector
+// once, the bytes bound; there is no Ap plane and no one-block finalize
+// launch. step_ab's second pair of sums (rr, sum_r) is reduced by the last
+// block to finish, picked by an integer ticket. step_init has two barriers
+// when the system is singular (the means of b and x0, then the test) and
+// one otherwise; phase A's and phase B's partials lie in separate slots, so
+// a block past the first barrier cannot overwrite what a slower one still
+// reads. What remains above the bound is mostly fixed: the launch, each
+// barrier and the dependent L2 round trips of each reduction, about 5-7 us
+// a call on an H100 with one barrier (tools/torch_cg_times.py).
 //
 // Every sum has the bits of one fixed order, that of a "virtual grid" of nb
 // = pass_blocks(n) blocks of kThreads threads: virtual thread (b, t) adds its
 // points o = b kThreads + t + k nb kThreads in increasing k from T(0), each
 // virtual block reduces its threads in the tree s[t] + s[t + w] (w = 128 ...
 // 1), and the nb partials are reduced in the 1024-wide tree (zeros past nb).
-// A block of step_ab or step_c carries the virtual blocks B, B + G, B + 2G,
-// ... of a launch of G blocks, the first kV of them with up to kP points a
-// thread held in registers; points past those (larger levels, or fewer
-// resident blocks than virtual ones, as in f64) are formed again after the
-// barrier. The sums accumulate in the data type, as the TPU kernel and
+// A block of a launch of G blocks carries the virtual blocks B, B + G, B +
+// 2G, ..., the first kV of them with up to kP points a thread held in
+// registers; points past those (larger levels, or fewer resident blocks than
+// virtual ones, as in f64) are formed again after the barrier. The sums accumulate in the data type, as the TPU kernel and
 // torch.sum do; no float atomics, so iterations repeat exactly. Values
 // written by other blocks of the launch are read with __ldcg (L2).
 #include <climits>
@@ -58,7 +59,7 @@ namespace {
 
 constexpr int kThreads = 256;     // threads of a block, physical and virtual
 constexpr int kMaxBlocks = 1024;  // virtual blocks at most = partials per sum
-constexpr int kMaxSums = 4;       // sums per pass (poisson/cuda_cg.py PARTIALS)
+constexpr int kMaxSums = 6;       // partial sums per block (poisson/cuda_cg.py PARTIALS)
 static_assert(kMaxBlocks == 4 * kThreads, "grid_total folds four partials a thread");
 
 int pass_blocks(long long n) {
@@ -66,15 +67,15 @@ int pass_blocks(long long n) {
   return static_cast<int>(b < kMaxBlocks ? (b > 0 ? b : 1) : kMaxBlocks);
 }
 
-// ---- the fixed trees of step_ab and step_c -----------------------------------
+// ---- the fixed trees ------------------------------------------------------------
 constexpr int kTreeRows = 4;  // sums a thread reduces at once (kV virtual blocks x 2)
 
-// the shared memory of the trees: rows of kThreads values and the totals
+// the shared memory of the trees: R rows of kThreads values and the totals
 // broadcast to the block
-template <typename T>
+template <typename T, int R = kTreeRows>
 struct TreeSmem {
-  T s[kTreeRows][kThreads];
-  T bcast[2];
+  T s[R][kThreads];
+  T bcast[R];
 };
 
 // In the tree s[t] + s[t + w] over 32 K values, value t = l + 32 k pairs
@@ -97,9 +98,9 @@ __device__ __forceinline__ T fold_lane(T (&a)[K]) {
 // The tree s[t] + s[t + w], w = 128 ... 1, of NS sums over the block, in
 // one pass through shared memory; the totals are valid in thread 0. Two
 // trees need a block barrier between them.
-template <typename T, int NS>
-__device__ __forceinline__ void tree256(const T (&v)[NS], T (&tot)[NS], TreeSmem<T>& sm) {
-  static_assert(NS <= kTreeRows, "TreeSmem holds kTreeRows sums a thread");
+template <typename T, int NS, int R>
+__device__ __forceinline__ void tree256(const T (&v)[NS], T (&tot)[NS], TreeSmem<T, R>& sm) {
+  static_assert(NS <= R, "TreeSmem holds R sums a thread");
   const int t = threadIdx.x;
 #pragma unroll
   for (int q = 0; q < NS; ++q) sm.s[q][t] = v[q];
@@ -118,9 +119,9 @@ __device__ __forceinline__ void tree256(const T (&v)[NS], T (&tot)[NS], TreeSmem
 // The trees of the KV virtual blocks v0, v0 + stride, ... (those below nb)
 // of NQ sums each, v[jv * NQ + q]; thread 0 writes part[q * kMaxBlocks +
 // v].
-template <typename T, int KV, int NQ>
+template <typename T, int KV, int NQ, int R>
 __device__ __forceinline__ void write_partials(const T (&v)[KV * NQ], T* part, int v0, int stride,
-                                               int nb, TreeSmem<T>& sm) {
+                                               int nb, TreeSmem<T, R>& sm) {
   T tot[KV * NQ];
   tree256<T, KV * NQ>(v, tot, sm);
   if (threadIdx.x == 0) {
@@ -136,8 +137,8 @@ __device__ __forceinline__ void write_partials(const T (&v)[KV * NQ], T* part, i
 // kMaxBlocks + b], written by any block of the launch) in the 1024-wide
 // tree. Its steps w = 512 and 256 fold partials t, t + 256, t + 512 and
 // t + 768 in thread t; tree256 does the rest.
-template <typename T, int NQ>
-__device__ __forceinline__ void grid_total(const T* part, int nb, T (&tot)[NQ], TreeSmem<T>& sm) {
+template <typename T, int NQ, int R>
+__device__ __forceinline__ void grid_total(const T* part, int nb, T (&tot)[NQ], TreeSmem<T, R>& sm) {
   const int t = threadIdx.x;
   T v[NQ];
 #pragma unroll
@@ -200,14 +201,20 @@ struct AbArgs {
   VGrid g;
 };
 
-// the 5-point (A p)(i, j) of point c, whose own p is pc (apply_coefs' order)
-template <typename T>
-__device__ __forceinline__ T matvec(const Level<T>& L, const T* __restrict__ p, const Pt& c, T pc) {
+// the 5-point (A p)(i, j) of point c, whose own p is pc (apply_coefs' order);
+// a neighbour inside the level is f(its p)
+template <typename T, typename F>
+__device__ __forceinline__ T matvec(const Level<T>& L, const T* __restrict__ p, const Pt& c, T pc, F f) {
   const int N = L.N, M = L.M, o = c.o, i = c.i, j = c.j;
   return apply_coefs<T, 5>([&](int k) { return __ldg(L.a[k] + o); }, i, j, [&](int a, int b) {
     if (a == i && b == j) return pc;
-    return (a >= 0 && a < N && b >= 0 && b < M) ? __ldg(p + o + (a - i) * M + (b - j)) : T(0);
+    return (a >= 0 && a < N && b >= 0 && b < M) ? f(__ldg(p + o + (a - i) * M + (b - j))) : T(0);
   });
+}
+
+template <typename T>
+__device__ __forceinline__ T matvec(const Level<T>& L, const T* __restrict__ p, const Pt& c, T pc) {
+  return matvec(L, p, c, pc, [](T v) { return v; });
 }
 
 template <typename T, int KV, int KP>
@@ -405,141 +412,168 @@ __global__ void __launch_bounds__(kThreads, Shape<T>::kMinBlocks) step_c_kernel(
   }
 }
 
-// ---- step_init's reductions ----------------------------------------------------
-// Reduce each thread's NQ sums over the block in a fixed tree; thread 0
-// writes them to part[q * kMaxBlocks + blockIdx.x].
-template <typename T, int NQ>
-__device__ __forceinline__ void block_partials(const T (&v)[NQ], T* part) {
-  static_assert(NQ <= kMaxSums, "part holds kMaxSums sums per block");
-  __shared__ T s[NQ][kThreads];
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) s[q][t] = v[q];
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (t < w) {
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) s[q][t] = s[q][t] + s[q][t + w];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) part[q * kMaxBlocks + blockIdx.x] = s[q][0];
-  }
-}
-
-// In a one-block launch of kMaxBlocks threads: the totals of the partials of
-// nblocks blocks, reduced in a fixed tree; every thread gets them.
-template <typename T, int NQ>
-__device__ __forceinline__ void total_partials(const T* part, int nblocks, T (&tot)[NQ]) {
-  __shared__ T s[NQ][kMaxBlocks];
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) s[q][t] = t < nblocks ? part[q * kMaxBlocks + t] : T(0);
-  __syncthreads();
-  for (int w = kMaxBlocks / 2; w > 0; w >>= 1) {
-    if (t < w) {
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) s[q][t] = s[q][t] + s[q][t + w];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) tot[q] = s[q][0];
-}
-
-#define FS_GRID_STRIDE(o, n) \
-  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x; o < (n); \
-       o += (long long)gridDim.x * kThreads)
-
 // ---- step_init ---------------------------------------------------------------
-// scal: [bb, rr0, sum_r0, mean_b, mean_x, good]
+// scal: [bb, rr0, sum_r0, mean_b, mean_x, good]; part: sums 0-3 of phase B
+// (<b1, b1>, sum(b1), <r_ws, r_ws>, sum(r_ws)) and 4-5 of phase A (sum(b),
+// sum(x0)), in slots apart: a block that has passed the first barrier
+// writes phase B's partials while a slower one may still read phase A's.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) step_init_kernel_means(const T* b, const T* x0,
-                                                                   long long n, T* part) {
-  T acc[2] = {T(0), T(0)};
-  FS_GRID_STRIDE(o, n) {
-    acc[0] = acc[0] + b[o];
-    if (x0) acc[1] = acc[1] + x0[o];
-  }
-  block_partials<T, 2>(acc, part);
-}
+struct InitArgs {
+  Level<T> op;
+  const T *b, *x0;   // x0 null: a cold start
+  int singular;
+  T inv_n;
+  T *x_out, *r_out, *part, *scal;
+  VGrid g;
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxBlocks) step_init_kernel_mean(const T* part, int nblocks,
-                                                                    T inv_n, T* scal) {
-  T tot[2];
-  total_partials<T, 2>(part, nblocks, tot);
-  if (threadIdx.x == 0) {
-    scal[3] = tot[0] * inv_n;
-    scal[4] = tot[1] * inv_n;
-  }
-}
+constexpr int kInitSums = 4;   // phase B's sums
+static_assert(kInitSums + 2 <= kMaxSums, "part holds phase A's two sums past phase B's");
 
-// b1 = b - mean_b; the warm start's residual r_ws = b1 - A x1 into r_out
-// (cold: r_out = b1, x_out = 0); partials of <b1,b1>, sum(b1) and, warm,
-// <r_ws,r_ws>, sum(r_ws)
-template <typename T>
-__global__ void __launch_bounds__(kThreads) step_init_kernel_resid(Level<T> op, const T* b,
-                                                                   const T* x0, const T* scal,
-                                                                   int singular, T* x_out,
-                                                                   T* r_out, T* part) {
-  const int N = op.N, M = op.M;
-  const T mean_b = singular ? scal[3] : T(0), mean_x = singular ? scal[4] : T(0);
-  T acc[4] = {T(0), T(0), T(0), T(0)};
-  FS_GRID_STRIDE(o, (long long)N * M) {
-    const T b1 = singular ? b[o] - mean_b : b[o];
+template <typename T, int KV, int KP>
+__global__ void __launch_bounds__(kThreads, Shape<T>::kMinBlocks) step_init_kernel(InitArgs<T> A) {
+  __shared__ TreeSmem<T, KV * kInitSums> sm;
+  const VGrid& g = A.g;
+  const int B = blockIdx.x, G = gridDim.x, t = threadIdx.x;
+  const bool warm = A.x0 != nullptr, singular = A.singular != 0;
+  T* const part_a = A.part + kInitSums * kMaxBlocks;
+  // the register-held points' b and x0; after phase B b1, x1 and r_ws
+  T bv[KV][KP], xv[KV][KP], rv[KV][KP];
+#pragma unroll
+  for (int jv = 0; jv < KV; ++jv) {
+    const int v = B + jv * G;
+    if (v >= g.nb) continue;
+    int o = v * kThreads + t;
+#pragma unroll
+    for (int k = 0; k < KP; ++k, o += g.S) {
+      if (o < g.n) {
+        bv[jv][k] = __ldg(A.b + o);
+        xv[jv][k] = warm ? __ldg(A.x0 + o) : T(0);
+      }
+    }
+  }
+  // phase A (singular): sum(b) and sum(x0), then the means
+  T mean_b = T(0), mean_x = T(0);
+  if (singular) {
+    auto sums = [&](int o, T b, T& sb, T& sx) {
+      sb = sb + b;
+      if (warm) sx = sx + __ldg(A.x0 + o);
+    };
+    T acc[KV * 2];
+#pragma unroll
+    for (int jv = 0; jv < KV; ++jv) {
+      acc[2 * jv] = acc[2 * jv + 1] = T(0);
+      const int v = B + jv * G;
+      if (v >= g.nb) continue;
+      int o = v * kThreads + t;
+#pragma unroll
+      for (int k = 0; k < KP; ++k, o += g.S) {
+        if (o < g.n) {
+          acc[2 * jv] = acc[2 * jv] + bv[jv][k];
+          if (warm) acc[2 * jv + 1] = acc[2 * jv + 1] + xv[jv][k];
+        }
+      }
+      for (; o < g.n; o += g.S) sums(o, __ldg(A.b + o), acc[2 * jv], acc[2 * jv + 1]);
+    }
+    write_partials<T, KV, 2>(acc, part_a, B, G, g.nb, sm);
+    for (int v = B + KV * G; v < g.nb; v += G) {
+      __syncthreads();
+      T a[2] = {T(0), T(0)};
+      for (int o = v * kThreads + t; o < g.n; o += g.S) sums(o, __ldg(A.b + o), a[0], a[1]);
+      write_partials<T, 1, 2>(a, part_a, v, 0, g.nb, sm);
+    }
+    cooperative_groups::this_grid().sync();
+    T tot[2];
+    grid_total<T, 2>(part_a, g.nb, tot, sm);
+    mean_b = tot[0] * A.inv_n;
+    mean_x = tot[1] * A.inv_n;
+  }
+  // phase B: b1 and, warm, r_ws = b1 - A x1 with their sums; a cold start
+  // writes its x0' = 0 and r0' = b1 at once
+  auto proj_x = [&](T x) { return singular ? x - mean_x : x; };
+  auto form = [&](const Pt& c, T b, T x, T& b1, T& x1, T& rws, T* acc) {
+    b1 = singular ? b - mean_b : b;
     acc[0] = acc[0] + b1 * b1;
     acc[1] = acc[1] + b1;
-    if (x0) {
-      const int i = static_cast<int>(o / M), j = static_cast<int>(o % M);
-      auto X = [&](int a, int c) {
-        if (a < 0 || a >= N || c < 0 || c >= M) return T(0);
-        const T v = x0[(size_t)a * M + c];
-        return singular ? v - mean_x : v;
-      };
-      const T rws = b1 - apply_at<T, 5>(op, (size_t)o, i, j, X);
-      r_out[o] = rws;
+    if (warm) {
+      x1 = proj_x(x);
+      rws = b1 - matvec(A.op, A.x0, c, x1, proj_x);
       acc[2] = acc[2] + rws * rws;
       acc[3] = acc[3] + rws;
     } else {
-      r_out[o] = b1;
-      x_out[o] = T(0);
+      A.r_out[c.o] = b1;
+      A.x_out[c.o] = T(0);
     }
+  };
+  auto form_again = [&](const Pt& c, T* acc) {
+    T b1, x1, rws;
+    form(c, __ldg(A.b + c.o), warm ? __ldg(A.x0 + c.o) : T(0), b1, x1, rws, acc);
+  };
+  T acc[KV * kInitSums];
+#pragma unroll
+  for (int jv = 0; jv < KV; ++jv) {
+#pragma unroll
+    for (int q = 0; q < kInitSums; ++q) acc[kInitSums * jv + q] = T(0);
+    const int v = B + jv * G;
+    if (v >= g.nb) continue;
+    Pt c(g, v);
+#pragma unroll
+    for (int k = 0; k < KP; ++k, c.next(g)) {
+      if (c.o < g.n) form(c, bv[jv][k], xv[jv][k], bv[jv][k], xv[jv][k], rv[jv][k], acc + kInitSums * jv);
+    }
+    for (; c.o < g.n; c.next(g)) form_again(c, acc + kInitSums * jv);
   }
-  block_partials<T, 4>(acc, part);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxBlocks) step_init_kernel_test(const T* part, int nblocks,
-                                                                    int warm, T* scal) {
-  T tot[4];
-  total_partials<T, 4>(part, nblocks, tot);
-  if (threadIdx.x == 0) {
-    const bool good = warm && tot[2] < tot[0];
-    scal[0] = tot[0];
-    scal[1] = good ? tot[2] : tot[0];
-    scal[2] = good ? tot[3] : tot[1];
-    scal[5] = good ? T(1) : T(0);
+  write_partials<T, KV, kInitSums>(acc, A.part, B, G, g.nb, sm);
+  for (int v = B + KV * G; v < g.nb; v += G) {
+    __syncthreads();
+    T a[kInitSums] = {T(0), T(0), T(0), T(0)};
+    for (Pt c(g, v); c.o < g.n; c.next(g)) form_again(c, a);
+    write_partials<T, 1, kInitSums>(a, A.part, v, 0, g.nb, sm);
   }
-}
+  cooperative_groups::this_grid().sync();
 
-// warm start: x_out = good ? x1 : 0, r_out = good ? r_ws (already there) : b1
-template <typename T>
-__global__ void __launch_bounds__(kThreads) step_init_kernel_select(const T* b, const T* x0,
-                                                                    const T* scal, int singular,
-                                                                    T* x_out, T* r_out,
-                                                                    long long n) {
-  const T mean_b = singular ? scal[3] : T(0), mean_x = singular ? scal[4] : T(0);
-  const bool good = scal[5] != T(0);
-  FS_GRID_STRIDE(o, n) {
+  // phase C: the warm-start test, then x0' = good ? x1 : 0 and r0' = good ?
+  // r_ws : b1 (a cold start: block 0 only reduces)
+  if (!warm && B != 0) return;
+  T tot[kInitSums];
+  grid_total<T, kInitSums>(A.part, g.nb, tot, sm);
+  const bool good = warm && tot[2] < tot[0];
+  if (B == 0 && t == 0) {
+    A.scal[0] = tot[0];
+    A.scal[1] = good ? tot[2] : tot[0];
+    A.scal[2] = good ? tot[3] : tot[1];
+    A.scal[3] = mean_b;
+    A.scal[4] = mean_x;
+    A.scal[5] = good ? T(1) : T(0);
+  }
+  if (!warm) return;
+  auto select = [&](int o, T b1, T x1, T rws) {
+    A.x_out[o] = good ? x1 : T(0);
+    A.r_out[o] = good ? rws : b1;
+  };
+  auto select_again = [&](const Pt& c) {
+    const T b = __ldg(A.b + c.o);
+    const T b1 = singular ? b - mean_b : b;
     if (good) {
-      x_out[o] = singular ? x0[o] - mean_x : x0[o];
+      const T x1 = proj_x(__ldg(A.x0 + c.o));
+      select(c.o, b1, x1, b1 - matvec(A.op, A.x0, c, x1, proj_x));
     } else {
-      x_out[o] = T(0);
-      r_out[o] = singular ? b[o] - mean_b : b[o];
+      select(c.o, b1, T(0), T(0));
     }
+  };
+#pragma unroll
+  for (int jv = 0; jv < KV; ++jv) {
+    const int v = B + jv * G;
+    if (v >= g.nb) continue;
+    Pt c(g, v);
+#pragma unroll
+    for (int k = 0; k < KP; ++k, c.next(g)) {
+      if (c.o < g.n) select(c.o, bv[jv][k], xv[jv][k], rv[jv][k]);
+    }
+    for (; c.o < g.n; c.next(g)) select_again(c);
+  }
+  for (int v = B + KV * G; v < g.nb; v += G) {
+    for (Pt c(g, v); c.o < g.n; c.next(g)) select_again(c);
   }
 }
 
@@ -637,24 +671,19 @@ int c(const void* r, const void* z_raw, const void* p, const void* rz_prev, cons
 template <typename T>
 int init(const void* const* op, const void* b, const void* x0, int singular, int N, int M,
          void* x_out, void* r_out, void* part, void* scal, cudaStream_t s) {
-  const long long n = (long long)N * M;
-  const int nb = pass_blocks(n);
-  T* P = static_cast<T*>(part);
-  T* S = static_cast<T*>(scal);
-  const T* B = static_cast<const T*>(b);
-  const T* X0 = static_cast<const T*>(x0);
-  if (singular) {
-    step_init_kernel_means<T><<<nb, kThreads, 0, s>>>(B, X0, n, P);
-    step_init_kernel_mean<T><<<1, kMaxBlocks, 0, s>>>(P, nb, T(1.0 / (double)n), S);
-  }
-  step_init_kernel_resid<T><<<nb, kThreads, 0, s>>>(level5<T>(op, N, M), B, X0, S, singular,
-                                                    static_cast<T*>(x_out),
-                                                    static_cast<T*>(r_out), P);
-  step_init_kernel_test<T><<<1, kMaxBlocks, 0, s>>>(P, nb, X0 != nullptr, S);
-  if (X0)
-    step_init_kernel_select<T><<<nb, kThreads, 0, s>>>(B, X0, S, singular, static_cast<T*>(x_out),
-                                                       static_cast<T*>(r_out), n);
-  return cudaGetLastError();
+  InitArgs<T> A{};
+  if (!make_vgrid((long long)N * M, M, A.g)) return cudaErrorInvalidValue;
+  A.op = level5<T>(op, N, M);
+  A.b = static_cast<const T*>(b);
+  A.x0 = static_cast<const T*>(x0);
+  A.singular = singular;
+  A.inv_n = T(1.0 / ((double)N * M));
+  A.x_out = static_cast<T*>(x_out);
+  A.r_out = static_cast<T*>(r_out);
+  A.part = static_cast<T*>(part);
+  A.scal = static_cast<T*>(scal);
+  static int resident = 0;
+  return launch_resident(step_init_kernel<T, Shape<T>::kV, Shape<T>::kP>, &resident, A.g.nb, A, s);
 }
 
 }  // namespace
@@ -689,8 +718,9 @@ extern "C" int fs_step_c(int dtype, const void* r, const void* z_raw, const void
       : fs::c<double>(r, z_raw, p, rz_prev, sum_r, singular, n, z_out, p_out, part, scal, s);
 }
 
-// step_init. op: 5 planes of (N, M); b, x0 (null: cold start): (N, M).
-// Writes x_out, r_out (N, M) and scal[0..2] = bb, rr0, sum_r0.
+// step_init, one cooperative launch. op: 5 planes of (N, M); b, x0 (null:
+// cold start): (N, M). Writes x_out, r_out (N, M) and scal[0..5] = bb, rr0,
+// sum_r0, mean_b, mean_x (0 unless singular) and good (1: the guess kept).
 extern "C" int fs_step_init(int dtype, const void* const* op, const void* b, const void* x0,
                             int singular, int N, int M, void* x_out, void* r_out, void* part,
                             void* scal, void* stream) {

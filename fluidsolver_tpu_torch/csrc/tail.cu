@@ -9,8 +9,19 @@
 // and forms the Galerkin product by comb probing; here the weights and the
 // closed-form product are the device functions fused_rap uses
 // (boxmg_device.cuh), so the result equals boxmg.galerkin_closed level by
-// level. It is one thread block of 1024 threads with __syncthreads() between
-// levels.
+// level. Like tail_cycle it is bound by its chain of dependent phases, not
+// by bytes (the pack is ~0.2 MB on the bench tail): each level's weights
+// must be complete before its Galerkin product, and each level before the
+// next. So it is one launch of one cluster of kClusterBlocks blocks: every
+// level is split into row bands, one a block; a block computes its band's
+// weights and a one-point ring into shared memory and forms its points'
+// Galerkin coefficients from there (fused_rap.cu's scheme), so a level
+// costs two rounds of loads, one block barrier and one cluster barrier
+// before the next level reads it (through L2, __ldcg). A point's product
+// needs ~81 coefficient loads and 9 sums, so the blocks are small
+// (kSetupThreads): a thread gets registers for its loads in flight, where at
+// 1024 threads (64 registers) they spilled and the setup ran 1.6x slower
+// (tools/torch_tail_setup_times.py).
 //
 // tail_cycle replaces fluidsolver_tpu/poisson/pallas_tail.py:455
 // (tail_cycle, pallas_call at :482): one V(n_pre, n_post) cycle over the
@@ -63,13 +74,13 @@ constexpr int kResidentPoints = 33 * 33;
 constexpr int kOwn = (kResidentPoints + kThreads - 1) / kThreads;   // points per thread on a resident level
 constexpr size_t kMaxSharedBytes = 232448;   // what one block may use on sm_90
 
-// one launch of n_blocks blocks of kThreads threads as one cluster
+// one launch of n_blocks blocks of n_threads threads as one cluster
 template <typename... Exp, typename... Act>
-int launch_cluster(void (*kernel)(Exp...), int n_blocks, size_t smem, cudaStream_t stream,
+int launch_cluster(void (*kernel)(Exp...), int n_blocks, int n_threads, size_t smem, cudaStream_t stream,
                    const Act&... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_blocks);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(n_threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -87,38 +98,80 @@ int launch_cluster(void (*kernel)(Exp...), int n_blocks, size_t smem, cudaStream
 // Layout of the pack buffer, per level d < n_levels - 1 with coarse size
 // S = Nc_d * Mc_d: 8 weight planes (transfer d -> d+1), then the 9
 // coefficient planes of level d+1. cuda_tail.py uses the same layout.
-template <typename T, int NC>
-__device__ void setup_level(const Level<T>& F, T* W, T* C) {
+//
+// Every transfer is shared by the cluster: block r takes the coarse rows
+// [K0, K1) of band r. It first computes the weights of its rows and a
+// one-point ring into shared memory (zero outside the coarse grid, as
+// rap_point reads them), then each coarse point's Galerkin coefficients from
+// there, so a weight crosses no barrier but the block's; a cluster barrier
+// ends each transfer but the last.
+constexpr int kSetupThreads = 256;   // threads of a setup block (no spills at 255 registers)
+
+// the weights of coarse rows K0 - 1 .. K1 and columns -1 .. Mc in shared
+// memory: plane q at sw + q * R * P, R = K1 - K0 + 2 rows of P = Mc + 2
+template <typename T>
+struct BandWeights {
+  const T* sw;
+  int RP, P, K0;
+  __device__ __forceinline__ T operator()(int q, int k, int l) const {
+    return sw[q * RP + (k - K0 + 1) * P + l + 1];
+  }
+};
+
+// rows of the band of a block for a coarse grid of Nc rows
+__host__ __device__ constexpr int band_rows(int Nc) { return (Nc + kClusterBlocks - 1) / kClusterBlocks; }
+
+// shared memory of a band of `rows` coarse rows of Mc columns
+__host__ __device__ constexpr size_t band_elems(int rows, int Mc) {
+  return (size_t)8 * (rows + 2) * (Mc + 2);
+}
+
+// rows [K0, K1) of transfer F -> coarse: weights W and coarse coefficients
+// C (pack planes of S = Nc Mc); kL2: F was written in this launch
+template <typename T, int NC, bool kL2>
+__device__ void setup_band(const Level<T>& F, T* W, T* C, int K0, int K1, T* sw) {
   const int Nc = (F.N + 1) / 2, Mc = (F.M + 1) / 2;
   const size_t S = (size_t)Nc * Mc;
-  for (size_t p = threadIdx.x; p < S; p += kThreads) {
+  const int P = Mc + 2, RP = (K1 - K0 + 2) * P;
+  for (int t = threadIdx.x; t < RP; t += kSetupThreads) {
     T w[8];
-    collapse_point<T, NC>(F, (int)(p / Mc), (int)(p % Mc), w);
+    collapse_point<T, NC, kL2>(F, K0 - 1 + t / P, t % P - 1, w);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) W[q * S + p] = w[q];
+    for (int q = 0; q < 8; ++q) sw[q * RP + t] = w[q];
   }
   __syncthreads();
-  WeightPlanes<T> wp;
-  for (int q = 0; q < 8; ++q) wp.w[q] = W + q * S;
-  wp.Nc = Nc;
-  wp.Mc = Mc;
-  for (size_t p = threadIdx.x; p < S; p += kThreads) {
+  const BandWeights<T> wb{sw, RP, P, K0};
+  for (int t = threadIdx.x; t < (K1 - K0) * Mc; t += kSetupThreads) {
+    const int K = K0 + t / Mc, L = t % Mc;
+    const size_t o = (size_t)K * Mc + L;
     T c[9];
-    rap_point<T, NC>(F, (int)(p / Mc), (int)(p % Mc), wp, c);
+    rap_point<T, NC, kL2>(F, K, L, wb, c);
 #pragma unroll
-    for (int q = 0; q < 9; ++q) C[q * S + p] = c[q];
+    for (int q = 0; q < 8; ++q) W[q * S + o] = wb(q, K, L);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) C[q * S + o] = c[q];
   }
-  __syncthreads();
 }
 
 template <typename T, int NC0>
-__global__ void __launch_bounds__(kThreads) tail_setup_kernel(Level<T> F, int n_levels, T* buf) {
+__global__ void __launch_bounds__(kSetupThreads, 1)
+tail_setup_kernel(Level<T> F, int n_levels, T* buf) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sw = reinterpret_cast<T*>(smem_raw);
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = (int)cluster.block_rank();
   T* p = buf;
   for (int d = 0; d < n_levels - 1; ++d) {
     const int Nc = (F.N + 1) / 2, Mc = (F.M + 1) / 2;
     const size_t S = (size_t)Nc * Mc;
-    if (d == 0 && NC0 == 5) setup_level<T, 5>(F, p, p + 8 * S);
-    else setup_level<T, 9>(F, p, p + 8 * S);
+    const int K0 = min(Nc, rank * band_rows(Nc)), K1 = min(Nc, K0 + band_rows(Nc));
+    if (K1 > K0) {
+      if (d == 0 && NC0 == 5) setup_band<T, 5, false>(F, p, p + 8 * S, K0, K1, sw);
+      else if (d == 0) setup_band<T, 9, false>(F, p, p + 8 * S, K0, K1, sw);
+      else setup_band<T, 9, true>(F, p, p + 8 * S, K0, K1, sw);
+    }
+    if (d == n_levels - 2) break;
+    cluster.sync();   // level d+1 is complete, and the band's weights are read
     for (int k = 0; k < 9; ++k) F.a[k] = p + (8 + k) * S;
     F.N = Nc;
     F.M = Mc;
@@ -199,14 +252,8 @@ struct BlockTeam {     // block 0's threads below n (a multiple of 32)
 
 // kL2: the level lives in device memory, where other blocks write it
 template <typename T, bool kL2>
-__device__ __forceinline__ T rd(const T* p, int o) {
-  if constexpr (kL2) return __ldcg(p + o);
-  else return p[o];
-}
-
-template <typename T, bool kL2>
 __device__ __forceinline__ T rd(const T* p, int i, int j, int N, int M) {
-  return (i >= 0 && i < N && j >= 0 && j < M) ? rd<T, kL2>(p, i * M + j) : T(0);
+  return (i >= 0 && i < N && j >= 0 && j < M) ? ldo<T, kL2>(p, i * M + j) : T(0);
 }
 
 // A point's coefficients and its neighbourhood of the iterate, all loaded
@@ -243,9 +290,9 @@ __device__ void half_step(const Level<T>& op, const T* b, const T* src, T* dst, 
   auto X = [&](int i, int j) { return src ? rd<T, true>(src, i, j, N, M) : T(0); };
   for (int p = tm.tid; p < N * M; p += tm.n) {
     const int i = p / M, j = p % M;
-    T v = src ? rd<T, true>(src, p) : T(0);
+    T v = src ? ldo<T, true>(src, p) : T(0);
     if ((((i + j) & 1) == 0) == red) {
-      const T bp = rd<T, true>(b, p);
+      const T bp = ldo<T, true>(b, p);
       v = Loaded<T, NC>(op, p, i, j, X).gs(bp);
     }
     dst[p] = v;
@@ -269,7 +316,7 @@ __device__ void smooth(const Level<T>& op, const T* b, T* x, T* xt, bool zero, b
     zero = false;
   }
   if (n_sweeps == 0 && last) {
-    for (int p = tm.tid; p < op.N * op.M; p += tm.n) last[p] = zero ? T(0) : rd<T, true>(x, p);
+    for (int p = tm.tid; p < op.N * op.M; p += tm.n) last[p] = zero ? T(0) : ldo<T, true>(x, p);
     tm.sync();
   }
 }
@@ -291,7 +338,7 @@ __device__ void residual(const Level<T>& op, const T* b, const T* x, T* r, const
   const int N = op.N, M = op.M;
   auto X = [&](int i, int j) { return x ? rd<T, true>(x, i, j, N, M) : T(0); };
   for (int p = tm.tid; p < N * M; p += tm.n) {
-    const T bp = rd<T, true>(b, p);
+    const T bp = ldo<T, true>(b, p);
     r[p] = bp - Loaded<T, NC>(op, p, p / M, p % M, X).apply();
   }
   tm.sync();
@@ -314,7 +361,7 @@ __device__ void prolong_add(int N, int M, const T* x_in, T* x, const T* ec,
                             const WeightPlanes<T>& tr, const Team& tm) {
   auto E = [&](int k, int l) { return rd<T, true>(ec, k, l, tr.Nc, tr.Mc); };
   for (int p = tm.tid; p < N * M; p += tm.n)
-    x[p] = (x_in ? rd<T, true>(x_in, p) : T(0)) + prolong_at<T>(p / M, p % M, E, tr);
+    x[p] = (x_in ? ldo<T, true>(x_in, p) : T(0)) + prolong_at<T>(p / M, p % M, E, tr);
   tm.sync();
 }
 
@@ -536,6 +583,19 @@ __global__ void __launch_bounds__(kThreads, 1) tail_cycle_kernel(const __grid_co
   }
 }
 
+template <typename T, int NC0>
+int launch_setup(const Level<T>& F, int n_levels, T* buf, size_t smem, cudaStream_t stream) {
+  static size_t smem_set = 0;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(tail_setup_kernel<T, NC0>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  return launch_cluster(tail_setup_kernel<T, NC0>, kClusterBlocks, kSetupThreads, smem, stream, F,
+                        n_levels, buf);
+}
+
 template <typename T>
 int setup(int ncoef0, const void* const* op0, int N, int M, int n_levels, void* buf,
           cudaStream_t stream) {
@@ -544,9 +604,12 @@ int setup(int ncoef0, const void* const* op0, int N, int M, int n_levels, void* 
   for (int k = 0; k < ncoef0; ++k) F.a[k] = static_cast<const T*>(op0[k]);
   F.N = N;
   F.M = M;
-  if (ncoef0 == 5) tail_setup_kernel<T, 5><<<1, kThreads, 0, stream>>>(F, n_levels, static_cast<T*>(buf));
-  else tail_setup_kernel<T, 9><<<1, kThreads, 0, stream>>>(F, n_levels, static_cast<T*>(buf));
-  return cudaGetLastError();
+  // the widest band (the first transfer's) sets the shared memory
+  const int Nc = (N + 1) / 2, Mc = (M + 1) / 2;
+  const size_t smem = band_elems(band_rows(Nc), Mc) * sizeof(T);
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+  return ncoef0 == 5 ? launch_setup<T, 5>(F, n_levels, static_cast<T*>(buf), smem, stream)
+                     : launch_setup<T, 9>(F, n_levels, static_cast<T*>(buf), smem, stream);
 }
 
 // one launch of the cycle kernel, raising its shared-memory limit first
@@ -560,7 +623,7 @@ int launch_cycle(const TailArgs<T>& A, int n_blocks, size_t smem, cudaStream_t s
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  return launch_cluster(tail_cycle_kernel<T, NC0>, n_blocks, smem, stream, A);
+  return launch_cluster(tail_cycle_kernel<T, NC0>, n_blocks, kThreads, smem, stream, A);
 }
 
 template <typename T>
@@ -657,6 +720,6 @@ extern "C" int fs_tail_cycle(int dtype, int ncoef0, const void* const* op0, cons
 // cluster barriers (n_threads = 0) or named barriers of each block's first
 // n_threads threads (a multiple of 32)
 extern "C" int fs_sync_probe(int n_blocks, int n_syncs, int n_threads, void* stream) {
-  return fs::launch_cluster(fs::sync_probe_kernel, n_blocks, 0, static_cast<cudaStream_t>(stream),
+  return fs::launch_cluster(fs::sync_probe_kernel, n_blocks, fs::kThreads, 0, static_cast<cudaStream_t>(stream),
                             n_syncs, n_threads);
 }

@@ -4,9 +4,9 @@
 CUDA source: ``csrc/cg.cu``; replaces the TPU kernels
 ``fluidsolver_tpu/poisson/pallas_cg.py:109`` (``step_ab``), ``:287``
 (``step_c``) and ``:462`` (``step_init``), with the contracts of their
-``padded_io=False`` form (the TPU band layout is not ported). ``step_ab``
-and ``step_c`` are one cooperative launch each (a grid-wide barrier between
-their reduction and their update), ``step_init`` a few launches. Every
+``padded_io=False`` form (the TPU band layout is not ported). Each is one
+cooperative launch (a grid-wide barrier between a reduction and the values
+that depend on it; ``step_init`` has up to two). Every
 scalar, in or out, is a 0-d tensor on the vectors' device: nothing is read
 back to the host.
 
@@ -25,7 +25,7 @@ import torch
 from fluidsolver_tpu_torch.poisson import _kernels
 from fluidsolver_tpu_torch.poisson.linsys import StencilOp, apply_op
 
-PARTIALS = 4 * 1024  # csrc/cg.cu: kMaxSums * kMaxBlocks per-block partial sums
+PARTIALS = 6 * 1024  # csrc/cg.cu: kMaxSums * kMaxBlocks per-block partial sums
 _SCALARS = 8
 
 

@@ -224,10 +224,25 @@ def test_tail_cycle_twin_matches_pallas(shape, deep, pre_post):
     assert_close(got, want, 1e-12, 1e-12 * scale)
 
 
-def test_tail_setup_twin_matches_pallas():
-    jop = jump_operator(30, 22, seed=5)
-    n = jbox._remaining_depth(jop.aC.shape, 0)
-    assert n == 2
+def galerkin_operator(nx, ny, seed):
+    """The 9-point Galerkin coarse operator (JAX package, closed form) of
+    the jump operator of an nx x ny box."""
+    jop = jump_operator(nx, ny, seed=seed)
+    return jbox.galerkin_closed(jop, jbox.collapse_weights(jop), jop.aC.shape)
+
+
+# the tail-finest operators at the limits of the CUDA setup's row bands: a
+# 5-point one of even sides (the remaining depth of its box, 2 levels) and
+# a 9-point one of odd sides (3 levels, odd sides on two of them)
+@pytest.mark.parametrize("case", ["5-point 32x24", "9-point 31x21"])
+def test_tail_setup_twin_matches_pallas(case):
+    if case == "5-point 32x24":
+        jop = jump_operator(30, 22, seed=5)
+        n = jbox._remaining_depth(jop.aC.shape, 0)
+        assert n == 2
+    else:
+        jop, n = galerkin_operator(59, 39, seed=5), 3
+    assert tuple(jop.aC.shape) == tuple(int(v) for v in case.split()[1].split("x"))
     jpack = pallas_tail.build_tail_pack_fused(jop, n, interpret=True)
     pack = cuda_tail.build_tail_pack(to_port(jop), n)
     assert pack.shapes == tuple(tuple(s) for s in pallas_tail._level_shapes(jop.aC.shape, n))
