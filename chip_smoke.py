@@ -10,7 +10,13 @@ result line):
      card, in f64 at the CPU tests' tolerances and in f32 at a relative
      (to max |twin|) tolerance of 1e-5 (fused_smooth and tail_cycle:
      bitwise), at the level shapes of a 1026^2
-     and of an odd 1023 x 771 box; kernel and twin times by CUDA events
+     and of an odd 1023 x 771 box; fused_rap also at the limits of its
+     tiling (coarse levels smaller than a tile and with sides a multiple of
+     no tile, 5- and 9-point; f32 bitwise logged) and timed at each of the
+     bench's three levels beside its bound; with --parent DIR, the
+     parent's fused_rap bitwise equal to this one's (all 17 planes, every
+     level of both boxes and the limit levels, f32 and f64) and timed in
+     turns at the three bench levels; kernel and twin times by CUDA events
      (the calls queued behind a device sleep, see time_ms) at the main
      path's shapes; the tail kernels also on a 160^2 tail of 6 levels, a
      66^2 tail with a 5-point finest operator and an odd 129 x 97 tail, f32
@@ -35,7 +41,13 @@ result line):
   3b. the three VOF kernels (elvira, curvature, overlap) against their twins
      on the bench drop's vf (1026^2 box) and on an odd 1023 x 771 box with
      25 drops: f64 at the CPU tests' tolerances, f32 at the relative 1e-5;
-     times at the main path's shape; a lane budget below the active set
+     times at the main path's shape; elvira also on four limit fields
+     (every cell mixed, none, one, one with a NaN neighbour), with the
+     bench drop's mixed cells, the tiles and warps that hold them, and its
+     time beside a fill-only probe's (its memory floor); with --parent DIR,
+     the parent's elvira bitwise equal to this one's (nx, ny, d, valid; the
+     bench drop, the 25-drop box and the limit fields, f32 and f64) and
+     timed in turns at 1026^2 f32; a lane budget below the active set
      must give an infinite volume error; the VOF stage, queued behind a
      device sleep, must return while the stream is still busy (no host read);
   3c. the fused PCG iteration (step_ab, step_c, step_init) and the fused
@@ -77,8 +89,8 @@ result line):
      drift, max |div|, the exact launch counts of its eleven kernels, and a
      profiler split of 3 steps (kernels, rest of the VOF stage, pressure
      solve, other work, idle share), in which the profiler must see one
-     device kernel per step_ab, step_c, step_init and tail_setup call, and
-     their in-path device time per call;
+     device kernel per step_ab, step_c, step_init, tail_setup, fused_rap
+     and elvira call, and their in-path device time per call;
   7. the same configuration on PCG + "mg" (the JAX package's default
      preconditioner), 10 steps: the phase 6 report, the solves that stopped
      at the iteration cap or above their tolerance, the exact launch counts
@@ -145,7 +157,7 @@ MG_STEP = tuple(k for k in REPLACES if k not in BOXMG)
 TRACE_NAMES = {k: k + "_kernel" for k in REPLACES}
 # kernels redesigned as one launch per wrapper call (the profiler must see
 # one device kernel per call on the bench step)
-ONE_LAUNCH = ("step_ab", "step_c", "step_init", "tail_setup")
+ONE_LAUNCH = ("step_ab", "step_c", "step_init", "tail_setup", "fused_rap", "elvira")
 F32_RTOL = 1e-5
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and
 # non-tensor-core FLOP/s by dtype
@@ -255,6 +267,20 @@ def swirl_velocity(g, dtype, device):
     U = torch.as_tensor(np.sin(np.pi * Xu) * np.cos(np.pi * Yu), dtype=dtype, device=device)
     V = torch.as_tensor(-np.cos(np.pi * Xv) * np.sin(np.pi * Yv), dtype=dtype, device=device)
     return U, V, stencil.interp_u_center(U), stencil.interp_v_center(V)
+
+
+def ptxas_report(build_log: str, kernel: str) -> list:
+    """The ptxas lines (registers, shared memory, spills) of the kernels
+    whose mangled names hold ``kernel``, from a verbose build log."""
+    lines, keep = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            keep = kernel in line
+            if keep and "Compiling" in line:
+                lines.append(line.split("'")[1] if "'" in line else line)
+        elif keep and ("registers" in line or "spill" in line):
+            lines.append("    " + line.strip())
+    return lines
 
 
 # ---- comparisons -------------------------------------------------------------
@@ -373,13 +399,8 @@ def kernel_phase(device, errors: Errors, tail_start: dict) -> dict:
                 check_smooth(errors, op, b, kw, main, f"{tag} level {lshape} variant {vname}")
             if main and dtype == torch.float32 and level == 0:
                 kw = variants["restrict"]
-                nm, ncm = lshape[0] * lshape[1], trt.pW.numel()
-                ncoef = len(boxmg.coefs(op))
-                # ncoef planes in, 8 weight + 9 coefficient coarse planes out;
-                # ~540 flops per coarse point
-                bnd = bound(s * (ncoef * nm + 17 * ncm), 540 * ncm, dtype)
                 times["fused_rap"] = (time_ms(lambda: cuda_rap.fused_rap_cuda(op), 20, kernel=True),
-                                      time_ms(lambda: cuda_rap.fused_rap_twin(op), 3), *bnd)
+                                      time_ms(lambda: cuda_rap.fused_rap_twin(op), 3), *rap_bound(op))
                 times["fused_smooth"] = (
                     time_ms(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), 50, kernel=True),
                     time_ms(lambda: cuda_vcycle.fused_smooth_twin(op, b, **kw), 10), *smooth_bound(op, kw))
@@ -387,6 +408,114 @@ def kernel_phase(device, errors: Errors, tail_start: dict) -> dict:
             op = ct
             level += 1
     return times
+
+
+# ---- phase 3: fused_rap ------------------------------------------------------
+def rap_bound(op) -> tuple:
+    """fused_rap's bound on ``op``: its ncoef planes in, 8 weight and 9
+    coefficient coarse planes out; ~540 flops per coarse point."""
+    from fluidsolver_tpu_torch.poisson import boxmg
+
+    n, m = op.aC.shape
+    ncm = ((n + 1) // 2) * ((m + 1) // 2)
+    return bound(itemsize(op.aC.dtype) * (len(boxmg.coefs(op)) * n * m + 17 * ncm), 540 * ncm, op.aC.dtype)
+
+
+def fused_rap_with(lib, op) -> list:
+    """cuda_rap.fused_rap_cuda through the library ``lib`` (None: this
+    commit's): its 17 output planes."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap
+
+    with kernel_library(lib):
+        tr, c = cuda_rap.fused_rap_cuda(op)
+    return fields_of(tr) + fields_of(c)
+
+
+def rap_levels(shape, dtype, device) -> list:
+    """The operators fused_rap coarsens in a hierarchy of a finest box of
+    ``shape``: the random jump operator and its Galerkin coarse operators
+    (fused_rap_twin), one per level above the tail (1026^2: 1026^2 5-point,
+    513^2 and 257^2 9-point, the main path's three launches)."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap
+
+    op = random_operator(*shape, seed=13, dtype=dtype, device=device)
+    out = []
+    for _ in range(above_tail_levels(shape)):
+        out.append(op)
+        op = cuda_rap.fused_rap_twin(op)[1]
+    return out
+
+
+def rap_limit_operators(dtype, device):
+    """Operators at the limits of fused_rap's tiling: fine levels of 13 x 9
+    (a coarse level of 7 x 5, smaller than one tile), 37 x 29 (19 x 15) and
+    389 x 277 (195 x 139, sides a multiple of no tile), each 5-point and
+    9-point (the Galerkin coarse operator of a level twice as fine). Yields
+    (name, operator)."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap
+
+    for n, m in ((13, 9), (37, 29), (389, 277)):
+        yield f"{n}x{m} 5-point", random_operator(n, m, seed=31, dtype=dtype, device=device)
+        fine = random_operator(2 * n - 1, 2 * m - 1, seed=37, dtype=dtype, device=device)
+        yield f"{n}x{m} 9-point", cuda_rap.fused_rap_twin(fine)[1]
+
+
+def rap_limits_phase(device, errors: Errors) -> None:
+    """fused_rap against its twin on rap_limit_operators, f64 at phase 3's
+    tolerances, f32 at the relative 1e-5 (bitwise logged)."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap
+
+    for dtype in (torch.float64, torch.float32):
+        bitwise = []
+        for name, op in rap_limit_operators(dtype, device):
+            trk, ck = cuda_rap.fused_rap_cuda(op)
+            trt, ct = cuda_rap.fused_rap_twin(op)
+            got, want = fields_of(trk) + fields_of(ck), fields_of(trt) + fields_of(ct)
+            errors.compare("fused_rap", got, want, dtype, 1e-13, 1e-11, False, f"{str(dtype)[6:]} {name}")
+            bitwise.append(f"{name} {all(torch.equal(a, b) for a, b in zip(got, want))}")
+        log(f"  {str(dtype)[6:]}: fused_rap agrees with its twin at the tiling's limits; bitwise: "
+            + ", ".join(bitwise))
+
+
+def rap_turns(device, old, new) -> None:
+    """fused_rap of the kernel library ``old`` against ``new``: all 17
+    output planes bitwise equal at every level of the 1026^2 and 1023 x 771
+    boxes and on rap_limit_operators, f64 and f32; then both timed in turns
+    (old, new, new, old) at the main path's three levels in f32."""
+    for dtype in (torch.float64, torch.float32):
+        cases = [(f"{shape[0]}x{shape[1]} level {tuple(op.aC.shape)}", op)
+                 for shape in ((1026, 1026), (1023, 771)) for op in rap_levels(shape, dtype, device)]
+        for name, op in cases + list(rap_limit_operators(dtype, device)):
+            require(all(torch.equal(a, b) for a, b in zip(fused_rap_with(old, op), fused_rap_with(new, op))),
+                    f"fused_rap {str(dtype)[6:]} {name}: the two libraries' outputs differ")
+        log(f"  {str(dtype)[6:]}: fused_rap's 17 planes bitwise equal to the parent's at {len(cases)} levels of the "
+            "1026^2 and 1023x771 boxes and at the tiling's 6 limit levels")
+    total = [0.0] * 4
+    for op in rap_levels((1026, 1026), torch.float32, device):
+        ms = [time_ms(lambda: fused_rap_with(lib, op), 20, kernel=True) for lib in (old, new, new, old)]
+        total = [a + b for a, b in zip(total, ms)]
+        n, m = op.aC.shape
+        log(f"  fused_rap at {n}x{m} (f32), device ms in turns: parent {ms[0]:.4f}, this {ms[1]:.4f}, "
+            f"this {ms[2]:.4f}, parent {ms[3]:.4f}; this / parent = {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
+    log(f"  fused_rap, the three bench launches summed in turns: this {(total[1] + total[2]) / 2:.4f} ms, parent "
+        f"{(total[0] + total[3]) / 2:.4f} ms; this / parent = {(total[1] + total[2]) / (total[0] + total[3]):.4f}")
+
+
+def rap_report_phase(device, parent) -> None:
+    """fused_rap's time and bound at each of the main path's three levels
+    (f32); with ``parent``, the parent's kernel held bitwise to this one's
+    and timed in turns (rap_turns)."""
+    from fluidsolver_tpu_torch.poisson import cuda_rap
+
+    rows = []
+    for op in rap_levels((1026, 1026), torch.float32, device):
+        n, m = op.aC.shape
+        rows.append((f"{n}x{m}", time_ms(lambda: cuda_rap.fused_rap_cuda(op), 20, kernel=True), *rap_bound(op)))
+    log("  fused_rap at the bench's three levels (f32, device ms / bound ms): "
+        + "; ".join(f"{name} {t:.4f} / {bt:.4f} ({by})" for name, t, bt, by in rows)
+        + f"; sum {sum(r[1] for r in rows):.4f} / {sum(r[2] for r in rows):.4f}")
+    if parent is not None:
+        rap_turns(device, parent_lib(parent), None)
 
 
 @functools.cache
@@ -407,7 +536,9 @@ def load_library(so) -> ctypes.CDLL:
 
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _kernels._SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:  # a measurement probe the other checkout does not have
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
@@ -832,6 +963,171 @@ def overlap_flops(args, n_active: int) -> int:
     return flops + n_active * (4 * 8 + 1 + 9)
 
 
+def check_elvira(errors: Errors, vf, dx: float, dy: float, main: bool, tag: str):
+    """elvira against its twin on ``vf``: valid exactly; the planes to
+    rounding (f64: 1e-10 relative and 1e-12 absolute; f32: the relative
+    1e-5) on every cell of the main path's field; elsewhere a cell may
+    differ only at a near-tie, where both winners fit the neighbourhood
+    equally well. Returns (the twin's Plic, cells at a near-tie)."""
+    from fluidsolver_tpu_torch.vof import cuda_elvira
+
+    dtype = vf.dtype
+    rk = cuda_elvira.elvira_cuda(vf, dx, dy)
+    rt = cuda_elvira.elvira_twin(vf, dx, dy)
+    require(torch.equal(rk.valid, rt.valid), f"elvira {tag}: valid masks differ")
+    tol = (lambda w: 1e-12 + 1e-10 * w.abs()) if dtype == torch.float64 else \
+        (lambda w: F32_RTOL * max(float(w.abs().max()), 1e-30))
+    off = torch.zeros_like(rt.valid)
+    for a, b in ((rk.nx, rt.nx), (rk.ny, rt.ny), (rk.d, rt.d)):
+        off |= (a - b).abs() > tol(b)
+    n_off = int(off.sum())
+    require(not (main and n_off), f"elvira {tag}: {n_off} cells differ from the twin")
+    if n_off:
+        ek = fit_error(vf, rk.nx, rk.ny, rk.d, dx, dy)
+        et = fit_error(vf, rt.nx, rt.ny, rt.d, dx, dy)
+        o = off[1:-1, 1:-1]
+        gap = float(((ek - et).abs()[o] / (et[o].abs() + 1e-12)).max())
+        require(gap <= (1e-6 if dtype == torch.float64 else 1e-5),
+                f"elvira {tag}: {n_off} cells differ and are not near-ties (fit gap {gap:.3e})")
+    errors.compare("elvira", [rk.nx, rk.ny, rk.d], [rt.nx, rt.ny, rt.d], dtype, 1e-10, 1e-12, main, tag, mask=~off)
+    return rt, n_off
+
+
+# csrc/elvira.cu's tile (kTileY x kTileX cells, one block each)
+ELVIRA_TILE = (8, 32)
+
+
+def elvira_limit_fields() -> list:
+    """Fields of 259 x 193 cells (sides a multiple of no tile) at the limits
+    of elvira's per-block list: every cell mixed (seeded noise in (0.02,
+    0.98), so every block's list is full), no mixed cell (a 0 / 1 step), a
+    single mixed cell (0.4 in the step), and a mixed cell with a NaN
+    neighbour (all 12 candidate errors NaN: it keeps (0, 1, 0), valid).
+    Returns [(name, dx, dy, vf)], vf in numpy f64."""
+    n, m = 259, 193
+    dx, dy = 1.0 / (n - 2), 1.3 / (m - 2)
+    step = np.where(np.arange(n)[:, None] < n // 2, 0.0, 1.0) * np.ones((n, m))
+    single = step.copy()
+    single[100, 77] = 0.4
+    nan = single.copy()
+    nan[101, 78] = np.nan
+    full = np.random.default_rng(29).uniform(0.02, 0.98, (n, m))
+    return [("every cell mixed", dx, dy, full), ("no mixed cell", dx, dy, step),
+            ("one mixed cell", dx, dy, single), ("a NaN neighbour", dx, dy, nan)]
+
+
+def elvira_limits_phase(device, errors: Errors) -> None:
+    """elvira against its twin (check_elvira) on elvira_limit_fields, f64
+    and f32; the cell with a NaN neighbour must come out (0, 1, 0), valid."""
+    from fluidsolver_tpu_torch.vof import cuda_elvira
+
+    for dtype in (torch.float64, torch.float32):
+        notes = []
+        for name, dx, dy, vf_np in elvira_limit_fields():
+            vf = torch.as_tensor(vf_np, dtype=dtype, device=device)
+            rt, n_off = check_elvira(errors, vf, dx, dy, False, f"{str(dtype)[6:]} {name}")
+            notes.append(f"{name}: {int(rt.valid.sum())} mixed, {n_off} near-ties")
+            if name == "a NaN neighbour":
+                rk = cuda_elvira.elvira_cuda(vf, dx, dy)
+                cell = [float(t[100, 77]) for t in (rk.nx, rk.ny, rk.d)] + [bool(rk.valid[100, 77])]
+                require(cell == [0.0, 1.0, 0.0, True], f"elvira {str(dtype)[6:]}: the cell with a NaN neighbour "
+                        f"gives {cell}")
+        log(f"  {str(dtype)[6:]} limit fields (259x193): elvira agrees with its twin; " + "; ".join(notes))
+
+
+def elvira_with(lib, vf, dx: float, dy: float) -> list:
+    """cuda_elvira.elvira_cuda through the library ``lib`` (None: this
+    commit's): nx, ny, d and valid."""
+    from fluidsolver_tpu_torch.vof import cuda_elvira
+
+    with kernel_library(lib):
+        r = cuda_elvira.elvira_cuda(vf, dx, dy)
+    return [r.nx, r.ny, r.d, r.valid]
+
+
+def elvira_fill_ms(lib, vf, dx: float, dy: float) -> float:
+    """Device ms of ``lib``'s fill-only probe on ``vf``: elvira's launch
+    with the fills written on every cell and no search (its memory floor)."""
+    from fluidsolver_tpu_torch.constants import vf_cutoffs
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    n, m = vf.shape
+    out = torch.empty((3, n, m), dtype=vf.dtype, device=vf.device)
+    valid = torch.empty((n, m), dtype=torch.uint8, device=vf.device)
+    lo, hi = vf_cutoffs(vf.dtype)
+    stream = _kernels.stream(vf.device)
+
+    def run():
+        rc = lib.fs_elvira_fill_probe(_kernels.dtype_code(vf.dtype), vf.data_ptr(), n, m, float(dx), float(dy),
+                                      lo, hi, out.data_ptr(), valid.data_ptr(), stream)
+        require(rc == 0, f"the fill-only probe did not launch: cudaError {rc}")
+
+    return time_ms(run, 50, kernel=True)
+
+
+def mixed_census(valid, tile) -> tuple:
+    """(mixed cells, tiles of ``tile`` = (rows, columns) cells that hold
+    one, 32-cell row segments that hold one: the warps of a 32-wide tile
+    that run a search)."""
+    v = valid.cpu().numpy()
+    n, m = v.shape
+
+    def occupied(th, tw):
+        pad = np.zeros((-(-n // th) * th, -(-m // tw) * tw), bool)
+        pad[:n, :m] = v
+        return int(pad.reshape(pad.shape[0] // th, th, pad.shape[1] // tw, tw).any(axis=(1, 3)).sum())
+
+    return int(v.sum()), occupied(*tile), occupied(1, 32)
+
+
+def elvira_turns(device, old, new, vf_bench: np.ndarray, g_bench) -> None:
+    """elvira of the kernel library ``old`` against ``new``: nx, ny, d and
+    valid bitwise equal on the bench drop, the 25-drop 1023 x 771 box and
+    elvira_limit_fields, f64 and f32; then both timed in turns (old, new,
+    new, old) on the bench drop in f32, beside ``new``'s fill-only floor."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    g_odd, vf_odd = drops_vf(1023, 771, 25, seed=5)
+    fields = [("bench drop", g_bench.dx, g_bench.dy, vf_bench), ("25 drops 1023x771", g_odd.dx, g_odd.dy, vf_odd)]
+    for dtype in (torch.float64, torch.float32):
+        for name, dx, dy, vf_np in fields + elvira_limit_fields():
+            vf = torch.as_tensor(vf_np, dtype=dtype, device=device)
+            want, got = elvira_with(old, vf, dx, dy), elvira_with(new, vf, dx, dy)
+            require(all(torch.equal(a, b) for a, b in zip(want, got)),
+                    f"elvira {str(dtype)[6:]} {name}: the two libraries' nx, ny, d or valid differ")
+        log(f"  {str(dtype)[6:]}: elvira's nx, ny, d and valid bitwise equal to the parent's on the bench drop, "
+            "the 25-drop box and the four limit fields")
+    vf = torch.as_tensor(vf_bench, dtype=torch.float32, device=device)
+    dx, dy = g_bench.dx, g_bench.dy
+    ms = [time_ms(lambda: elvira_with(lib, vf, dx, dy), 50, kernel=True) for lib in (old, new, new, old)]
+    fill = elvira_fill_ms(new or _kernels.lib(), vf, dx, dy)
+    log(f"  elvira on the bench drop (1026x1026 f32), device ms in turns: parent {ms[0]:.4f}, this {ms[1]:.4f}, "
+        f"this {ms[2]:.4f}, parent {ms[3]:.4f}; this / parent = {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}; "
+        f"fill-only floor {fill:.4f}")
+
+
+def elvira_report_phase(device, vf_bench: np.ndarray, g_bench, parent) -> None:
+    """Where elvira's search lies on the bench drop (f32): the mixed cells,
+    the tiles and 32-cell row segments that hold them; the kernel's time
+    beside its fill-only floor; with ``parent``, the parent's kernel held
+    bitwise to this one's and timed in turns (elvira_turns)."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+    from fluidsolver_tpu_torch.vof import cuda_elvira
+
+    vf = torch.as_tensor(vf_bench, dtype=torch.float32, device=device)
+    dx, dy = g_bench.dx, g_bench.dy
+    valid = cuda_elvira.elvira_cuda(vf, dx, dy).valid
+    n_mixed, tiles, rows = mixed_census(valid, ELVIRA_TILE)
+    total = -(-vf.shape[0] // ELVIRA_TILE[0]) * -(-vf.shape[1] // ELVIRA_TILE[1])
+    t = time_ms(lambda: cuda_elvira.elvira_cuda(vf, dx, dy), 50, kernel=True)
+    fill = elvira_fill_ms(_kernels.lib(), vf, dx, dy)
+    log(f"  elvira on the bench drop (1026x1026 f32): {n_mixed} mixed cells in {tiles} of {total} "
+        f"{ELVIRA_TILE[0]}x{ELVIRA_TILE[1]} tiles and {rows} 32-cell row segments; kernel {t:.4f} ms, fill-only "
+        f"floor {fill:.4f} ms, the search {t - fill:.4f} ms")
+    if parent is not None:
+        elvira_turns(device, parent_lib(parent), None, vf_bench, g_bench)
+
+
 def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> dict:
     """Returns name -> (kernel ms, twin ms, bound ms, bound by)."""
     from fluidsolver_tpu_torch.vof import advect, cuda_advect, cuda_curvature, cuda_elvira, curvature, plic
@@ -847,28 +1143,7 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
             dx, dy = g.dx, g.dy
             vf = torch.as_tensor(vf_np, dtype=dtype, device=device)
 
-            # elvira: valid exactly; planes to rounding on every cell of the
-            # bench drop; on the drops box a cell may differ only at a
-            # near-tie, where both winners fit the neighbourhood equally well
-            rk = cuda_elvira.elvira_cuda(vf, dx, dy)
-            rt = cuda_elvira.elvira_twin(vf, dx, dy)
-            require(torch.equal(rk.valid, rt.valid), f"elvira {tag}: valid masks differ")
-            tol = (lambda w: 1e-12 + 1e-10 * w.abs()) if dtype == torch.float64 else \
-                (lambda w: F32_RTOL * max(float(w.abs().max()), 1e-30))
-            off = torch.zeros_like(rt.valid)
-            for a, b in ((rk.nx, rt.nx), (rk.ny, rt.ny), (rk.d, rt.d)):
-                off |= (a - b).abs() > tol(b)
-            n_off = int(off.sum())
-            require(not (main and n_off), f"elvira {tag}: {n_off} cells differ from the twin")
-            if n_off:
-                ek = fit_error(vf, rk.nx, rk.ny, rk.d, dx, dy)
-                et = fit_error(vf, rt.nx, rt.ny, rt.d, dx, dy)
-                o = off[1:-1, 1:-1]
-                gap = float(((ek - et).abs()[o] / (et[o].abs() + 1e-12)).max())
-                require(gap <= (1e-6 if dtype == torch.float64 else 1e-5),
-                        f"elvira {tag}: {n_off} cells differ and are not near-ties (fit gap {gap:.3e})")
-            errors.compare("elvira", [rk.nx, rk.ny, rk.d], [rt.nx, rt.ny, rt.d], dtype, 1e-10, 1e-12,
-                           main, tag, mask=~off)
+            rt, n_off = check_elvira(errors, vf, dx, dy, main, tag)
             n_mixed = int(rt.valid.sum())
 
             # curvature on the twin's planes
@@ -1717,9 +1992,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one H100.")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of another commit: also hold its tail_setup, fused_smooth, step_ab, "
-                         "step_c and step_init bitwise to this one's and time them and its tail_cycle "
-                         "against this one's (phases 3, 3c)")
+                    help="a checkout of another commit: also hold its fused_rap, tail_setup, fused_smooth, "
+                         "elvira, step_ab, step_c and step_init bitwise to this one's and time them and its "
+                         "tail_cycle against this one's (phases 3, 3b, 3c)")
     parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1755,6 +2030,8 @@ def main(argv=None) -> int:
         log("phase 3: BoxMG kernels against their twins on the card")
         tail_start = {}
         times = kernel_phase(device, errors, tail_start)
+        rap_limits_phase(device, errors)
+        rap_report_phase(device, parent)
         tail_domain_phase(device, errors)
         tail_report_phase(device, tail_start, parent)
         smooth_limits_phase(device, errors)
@@ -1762,6 +2039,8 @@ def main(argv=None) -> int:
         phase = "3b VOF kernels vs twins"
         log("phase 3b: VOF kernels against their twins on the card")
         times.update(vof_kernel_phase(device, errors, vf_bench, g_bench))
+        elvira_limits_phase(device, errors)
+        elvira_report_phase(device, vf_bench, g_bench, parent)
         phase = "3c fused kernels vs twins"
         log("phase 3c: the fused PCG iteration and momentum kernels against their twins on the card")
         times.update(fused_kernel_phase(device, errors))

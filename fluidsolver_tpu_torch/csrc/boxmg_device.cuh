@@ -99,14 +99,10 @@ __device__ __forceinline__ void coefs_at(const Level<T>& L, size_t o, T c[9]) {
   for (int k = 0; k < 9; ++k) c[k] = k < NC ? ldo<T, kL2>(L.a[k], o) : T(0);
 }
 
-// line weights of fine point (i, j): x-line (pW_full, pE_full) and y-line
-// (pS_full, pN_full); zero outside the level. kL2: the level's planes are
-// read through L2 only (ldo).
-template <typename T, int NC, bool kL2 = false>
-__device__ __forceinline__ void line_x(const Level<T>& L, int i, int j, T& pW, T& pE) {
-  if (i < 0 || i >= L.N || j < 0 || j >= L.M) { pW = pE = T(0); return; }
-  T a[9];
-  coefs_at<T, NC, kL2>(L, (size_t)i * L.M + j, a);
+// line weights of a fine point from its coefficients a: x-line
+// (pW_full, pE_full) and y-line (pS_full, pN_full)
+template <typename T>
+__device__ __forceinline__ void line_x_of(const T a[9], T& pW, T& pE) {
   const T c = a[0], w = a[1], e = a[2], s = a[3], n = a[4];
   const T asw = a[5], ase = a[6], anw = a[7], ane = a[8];
   const T den = safe(c + n + s);
@@ -114,16 +110,52 @@ __device__ __forceinline__ void line_x(const Level<T>& L, int i, int j, T& pW, T
   pE = -(e + ane + ase) / den;
 }
 
-template <typename T, int NC, bool kL2 = false>
-__device__ __forceinline__ void line_y(const Level<T>& L, int i, int j, T& pS, T& pN) {
-  if (i < 0 || i >= L.N || j < 0 || j >= L.M) { pS = pN = T(0); return; }
-  T a[9];
-  coefs_at<T, NC, kL2>(L, (size_t)i * L.M + j, a);
+template <typename T>
+__device__ __forceinline__ void line_y_of(const T a[9], T& pS, T& pN) {
   const T c = a[0], w = a[1], e = a[2], s = a[3], n = a[4];
   const T asw = a[5], ase = a[6], anw = a[7], ane = a[8];
   const T den = safe(c + w + e);
   pS = -(s + asw + ase) / den;
   pN = -(n + anw + ane) / den;
+}
+
+// the same of fine point (i, j) of L; zero outside the level. kL2: the
+// level's planes are read through L2 only (ldo).
+template <typename T, int NC, bool kL2 = false>
+__device__ __forceinline__ void line_x(const Level<T>& L, int i, int j, T& pW, T& pE) {
+  if (i < 0 || i >= L.N || j < 0 || j >= L.M) { pW = pE = T(0); return; }
+  T a[9];
+  coefs_at<T, NC, kL2>(L, (size_t)i * L.M + j, a);
+  line_x_of(a, pW, pE);
+}
+
+template <typename T, int NC, bool kL2 = false>
+__device__ __forceinline__ void line_y(const Level<T>& L, int i, int j, T& pS, T& pN) {
+  if (i < 0 || i >= L.N || j < 0 || j >= L.M) { pS = pN = T(0); return; }
+  T a[9];
+  coefs_at<T, NC, kL2>(L, (size_t)i * L.M + j, a);
+  line_y_of(a, pS, pN);
+}
+
+// the corner weights w[kPSW..kPNE] of a coarse point from the coefficients
+// a of fine (2k+1, 2l+1), its line weights w[kPW..kPN] (those of fine
+// (2k+1, 2l) and (2k, 2l+1)) and the line weights at the other two
+// neighbours of (2k+1, 2l+1): (pS_b, pN_b) of (2k+2, 2l+1) and (pW_b, pE_b)
+// of (2k+1, 2l+2)
+template <typename T>
+__device__ __forceinline__ void corners_of(const T a[9], T pS_b, T pN_b, T pW_b, T pE_b, T w[8]) {
+  const T c = a[0], we = a[1], e = a[2], s = a[3], n = a[4];
+  const T asw = a[5], ase = a[6], anw = a[7], ane = a[8];
+  const T pS_a = w[kPS], pN_a = w[kPN], pW_a = w[kPW], pE_a = w[kPE];
+  const T cden = safe(c);
+  const T vSW = asw + we * pS_a + s * pW_a;
+  const T vSE = ase + e * pS_b + s * pE_a;
+  const T vNW = anw + we * pN_a + n * pW_b;
+  const T vNE = ane + e * pN_b + n * pE_b;
+  w[kPSW] = -vSW / cden;
+  w[kPSE] = -vSE / cden;
+  w[kPNW] = -vNW / cden;
+  w[kPNE] = -vNE / cden;
 }
 
 // all 8 weights of coarse point (k, l); zero outside the coarse grid and
@@ -140,23 +172,11 @@ __device__ void collapse_point(const Level<T>& L, int k, int l, T w[8]) {
   if (i >= L.N || j >= L.M) return;   // (odd, odd) point beyond the level
   T a[9];
   coefs_at<T, NC, kL2>(L, (size_t)i * L.M + j, a);
-  const T c = a[0], we = a[1], e = a[2], s = a[3], n = a[4];
-  const T asw = a[5], ase = a[6], anw = a[7], ane = a[8];
-  // line weights at the four neighbours of (i, j)
-  T pS_a, pN_a, pS_b, pN_b, pW_a, pE_a, pW_b, pE_b;
-  line_y<T, NC, kL2>(L, i - 1, j, pS_a, pN_a);
+  // line weights at the other two neighbours of (i, j)
+  T pS_b, pN_b, pW_b, pE_b;
   line_y<T, NC, kL2>(L, i + 1, j, pS_b, pN_b);
-  line_x<T, NC, kL2>(L, i, j - 1, pW_a, pE_a);
   line_x<T, NC, kL2>(L, i, j + 1, pW_b, pE_b);
-  const T cden = safe(c);
-  const T vSW = asw + we * pS_a + s * pW_a;
-  const T vSE = ase + e * pS_b + s * pE_a;
-  const T vNW = anw + we * pN_a + n * pW_b;
-  const T vNE = ane + e * pN_b + n * pE_b;
-  w[kPSW] = -vSW / cden;
-  w[kPSE] = -vSE / cden;
-  w[kPNW] = -vNW / cden;
-  w[kPNE] = -vNE / cden;
+  corners_of(a, pS_b, pN_b, pW_b, pE_b, w);
 }
 
 // ---- closed-form Galerkin product (boxmg.galerkin_closed) -------------------
@@ -172,12 +192,14 @@ __host__ __device__ constexpr PEntry p_entry(int pc, int e) {
           : e == 2 ? PEntry{0, 1, kPNW} : PEntry{1, 1, kPNE});
 }
 
-// the 9 coarse coefficients of coarse point (K, L); W(q, kk, ll) is weight
-// q at coarse (kk, ll), zero outside the coarse grid; kL2: F's planes are
-// read through L2 only (ldo)
-template <typename T, int NC, bool kL2 = false, typename WAcc>
-__device__ void rap_point(const Level<T>& F, int K, int Lc, WAcc W, T out[9]) {
-  const int Nc = (F.N + 1) / 2, Mc = (F.M + 1) / 2;
+// the 9 coarse coefficients of coarse point (K, L) of a level of N x M fine
+// points; A(k, i, j) is coefficient k of fine point (i, j), zero outside the
+// level, and W(q, kk, ll) weight q at coarse (kk, ll), zero outside the
+// coarse grid. Only the coefficients q with bit q of kMask set are formed
+// (each one's sum in the same order); the others stay 0.
+template <typename T, int NC, unsigned kMask = 0x1ffu, typename AAcc, typename WAcc>
+__device__ __forceinline__ void rap_from(AAcc A, int N, int M, int K, int Lc, WAcc W, T out[9]) {
+  const int Nc = (N + 1) / 2, Mc = (M + 1) / 2;
   T acc[9];
 #pragma unroll
   for (int q = 0; q < 9; ++q) acc[q] = T(0);
@@ -197,14 +219,15 @@ __device__ void rap_point(const Level<T>& F, int K, int Lc, WAcc W, T out[9]) {
         const int alpha = a1 - 2 * p1.sI, beta = b1 - 2 * p1.sJ;
         const int g2 = -p1.sI + (a1 + di - a2) / 2;
         const int d2 = -p1.sJ + (b1 + dj - b2) / 2;
-        const T av = ld<T, kL2>(F.a[k], 2 * K + alpha, 2 * Lc + beta, F.N, F.M);
+        const T av = A(k, 2 * K + alpha, 2 * Lc + beta);
         const T w1 = p1.w == kOne ? T(1) : W(p1.w, K + g1, Lc + d1);
 #pragma unroll
         for (int e2 = 0; e2 < 4; ++e2) {
           if (e2 >= p_count(pc2)) break;
           const PEntry p2 = p_entry(pc2, e2);
-          const T w2 = p2.w == kOne ? T(1) : W(p2.w, K + g2, Lc + d2);
           const int ci = coef_index(g2 + p2.sI, d2 + p2.sJ);
+          if (!((kMask >> ci) & 1u)) continue;
+          const T w2 = p2.w == kOne ? T(1) : W(p2.w, K + g2, Lc + d2);
           acc[ci] = acc[ci] + (av * w1) * w2;
         }
       }
@@ -215,6 +238,14 @@ __device__ void rap_point(const Level<T>& F, int K, int Lc, WAcc W, T out[9]) {
     const int KK = K + off_i(q), LL = Lc + off_j(q);
     out[q] = (KK >= 0 && KK < Nc && LL >= 0 && LL < Mc) ? acc[q] : T(0);
   }
+}
+
+// rap_from on a level's planes in device memory; kL2: F's planes are read
+// through L2 only (ldo)
+template <typename T, int NC, bool kL2 = false, typename WAcc>
+__device__ void rap_point(const Level<T>& F, int K, int Lc, WAcc W, T out[9]) {
+  rap_from<T, NC>([&](int k, int i, int j) { return ld<T, kL2>(F.a[k], i, j, F.N, F.M); }, F.N, F.M, K, Lc,
+                  W, out);
 }
 
 // ---- grid transfers (boxmg.restrict_box / prolong_box) -----------------------

@@ -68,6 +68,9 @@ _SIGNATURES = {
     "fs_fused_momentum": (_I, _P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _P),
     # dtype, vf, N, M, dx, dy, lo, hi, out (3 planes), valid, stream
     "fs_elvira": (_I, _P, _I, _I, _D, _D, _D, _D, _P, _P, _P),
+    # fs_elvira's arguments (the fills on every cell, no search: a
+    # measurement probe)
+    "fs_elvira_fill_probe": (_I, _P, _I, _I, _D, _D, _D, _D, _P, _P, _P),
     # dtype, nx, ny, d, valid, N, M, dx, dy, out, stream
     "fs_curvature": (_I, _P, _P, _P, _P, _I, _I, _D, _D, _P, _P),
     # dtype, slots_x, slots_y, lane_i, lane_j, vf, valid, nx, ny, d, N, M, m,

@@ -1,8 +1,8 @@
 """Kernel 10, ``elvira``: the 12-candidate ELVIRA reconstruction of every
 interior mixed cell in one launch.
 
-CUDA source: ``csrc/elvira.cu`` (one thread per cell of the ghost box);
-replaces the TPU kernel ``fluidsolver_tpu/vof/pallas_elvira.py:51``. The
+CUDA source: ``csrc/elvira.cu`` (one block per tile: the fills, then the
+tile's mixed cells' candidates spread over the block's threads); replaces the TPU kernel ``fluidsolver_tpu/vof/pallas_elvira.py:51``. The
 plain PyTorch twin runs ``plic.elvira_candidates`` on the shifted interior
 views and masks the result to the interior mixed cells with the fills
 (0, 1, 0), which is what the JAX package's sparse path and its TPU kernel

@@ -111,8 +111,10 @@ def test_boxmg_algebra_matches(shape):
                      jbox._rb_sweep(level, jnp.asarray(x), jnp.asarray(r), reverse), 0, 1e-12)
 
 
-@pytest.mark.parametrize("shape,nine", [((65, 63), False), ((33, 32), True)])
+@pytest.mark.parametrize("shape,nine", [((65, 63), False), ((33, 32), True), ((17, 11), True)])
 def test_fused_rap_twin_matches_pallas(shape, nine):
+    """(17, 11): a 9-point level whose coarse grid (9 x 6) is smaller than
+    one tile of the CUDA kernel, with odd sides."""
     jop = jump_operator(shape[0] - 2, shape[1] - 2, seed=shape[0])
     if nine:  # the Galerkin coarse operator of a finer jump operator
         fine = to_port(jump_operator(2 * shape[0] - 3, 2 * shape[1] - 3, seed=shape[1]))

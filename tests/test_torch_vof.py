@@ -170,6 +170,35 @@ def test_elvira_twin_matches_jax_default():
                  1e-10, 1e-12, "interface_length")
 
 
+def test_elvira_twin_matches_jax_default_all_mixed():
+    """Every cell mixed (seeded noise in (0.02, 0.98)), so each tile of the
+    CUDA kernel fills its list of mixed cells: the twin against the JAX CPU
+    default, valid exactly and the planes to rounding; a cell may differ
+    only at a near-tie, where both winners fit the neighbourhood equally
+    well (the gap test of chip_smoke.check_elvira)."""
+    import chip_smoke
+
+    g = make_grid(0.0, 1.0, 37, 0.0, 1.3, 53)
+    jg = jmake_grid(0.0, 1.0, 37, 0.0, 1.3, 53)
+    vf = np.random.default_rng(29).uniform(0.02, 0.98, g.shape_center)
+    got = cuda_elvira.elvira_twin(T(vf), g.dx, g.dy)
+    want = jplic.elvira(jnp.asarray(vf), jg.dx, jg.dy)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    assert int(got.valid.sum()) == 37 * 53
+    planes = [(getattr(got, k).numpy(), np.asarray(getattr(want, k))) for k in ("nx", "ny", "d")]
+    off = np.zeros(vf.shape, bool)
+    for a, b in planes:
+        off |= ~np.isclose(a, b, rtol=1e-10, atol=1e-12)
+    for a, b in planes:
+        assert_close(a[~off], b[~off], 1e-10, 1e-12)
+    if off.any():
+        fit_twin = chip_smoke.fit_error(T(vf), got.nx, got.ny, got.d, g.dx, g.dy).numpy()
+        fit_jax = chip_smoke.fit_error(T(vf), T(want.nx), T(want.ny), T(want.d), g.dx, g.dy).numpy()
+        o = off[1:-1, 1:-1]
+        gap = np.abs(fit_twin - fit_jax)[o] / (np.abs(fit_jax[o]) + 1e-12)
+        assert gap.max() <= 1e-6
+
+
 def test_elvira_twin_matches_pallas_interpret():
     """Once against the TPU kernel itself (interpret mode), at a shape of
     tests/test_pallas_elvira.py. One cell, (15, 38) with vf = 0.30298, is a

@@ -28,19 +28,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-def ptxas_report(log: str) -> list:
-    """The ptxas lines of the tail_setup kernels in a verbose build log."""
-    lines, keep = [], False
-    for line in log.splitlines():
-        if "Compiling entry function" in line or "Function properties for" in line:
-            keep = "tail_setup_kernel" in line
-            if keep and "Compiling" in line:
-                lines.append(line.split("'")[1] if "'" in line else line)
-        elif keep and ("registers" in line or "spill" in line):
-            lines.append("    " + line.strip())
-    return lines
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None, help="a checkout of another commit to hold to and time against")
@@ -62,7 +49,7 @@ def main() -> int:
     with contextlib.redirect_stdout(io.StringIO()) as out:
         _kernels.build(verbose=True)
     _kernels.lib()
-    print(f"built in {time.perf_counter() - t0:.1f} s", *ptxas_report(out.getvalue()), sep="\n", flush=True)
+    print(f"built in {time.perf_counter() - t0:.1f} s", *chip_smoke.ptxas_report(out.getvalue(), "tail_setup_kernel"), sep="\n", flush=True)
     errors = chip_smoke.Errors()
     for dtype in (torch.float64, torch.float32):
         op, n_rem = chip_smoke.bench_tail(dtype, device)
@@ -90,7 +77,7 @@ def main() -> int:
         csrc = Path(var) / "fluidsolver_tpu_torch" / "csrc"
         with contextlib.redirect_stdout(io.StringIO()) as out:
             so = _kernels.build(verbose=True, csrc=csrc, build_dir=_kernels.BUILD_DIR / "variant")
-        print(f"variant {var} against the parent:", *ptxas_report(out.getvalue()), sep="\n", flush=True)
+        print(f"variant {var} against the parent:", *chip_smoke.ptxas_report(out.getvalue(), "tail_setup_kernel"), sep="\n", flush=True)
         chip_smoke.tail_setup_turns(device, plib, chip_smoke.load_library(so))
     return 0
 
