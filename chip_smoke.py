@@ -47,7 +47,21 @@ result line):
      time beside a fill-only probe's (its memory floor); with --parent DIR,
      the parent's elvira bitwise equal to this one's (nx, ny, d, valid; the
      bench drop, the 25-drop box and the limit fields, f32 and f64) and
-     timed in turns at 1026^2 f32; a lane budget below the active set
+     timed in turns at 1026^2 f32; curvature also on the four limit
+     fields and on a field with valid cells beside the ghost ring (the lone
+     mixed cell and the field without one must give 0), with the bench
+     drop's valid cells and its time beside a fill-only probe's; overlap
+     also on the 25-drop box's budgets n_active // 2 (every lane active) and
+     n_active (no fill lane), on the box with a liquid drop over the corner
+     that the fill lanes gather, and on one lane, each with its working
+     (lane, neighbour) pairs (those above the cutoff), and timed on the
+     bench drop's swirl lanes and on the lanes of the bench step's first two
+     advections beside its floors (an empty launch of the same grid, the
+     gathers and cutoff test alone, the busiest lane alone); with --parent
+     DIR, the parent's curvature (f32 and f64, every field above) and
+     overlap (both outputs on every lane of every case above, f32 and f64)
+     bitwise equal to this one's and both timed in turns, overlap on the
+     swirl lanes and the bench step's; a lane budget below the active set
      must give an infinite volume error; the VOF stage, queued behind a
      device sleep, must return while the stream is still busy (no host read);
   3c. the fused PCG iteration (step_ab, step_c, step_init) and the fused
@@ -89,8 +103,9 @@ result line):
      drift, max |div|, the exact launch counts of its eleven kernels, and a
      profiler split of 3 steps (kernels, rest of the VOF stage, pressure
      solve, other work, idle share), in which the profiler must see one
-     device kernel per step_ab, step_c, step_init, tail_setup, fused_rap
-     and elvira call, and their in-path device time per call;
+     device kernel per step_ab, step_c, step_init, tail_setup, fused_rap,
+     elvira, curvature and overlap call, and their in-path device time per
+     call;
   7. the same configuration on PCG + "mg" (the JAX package's default
      preconditioner), 10 steps: the phase 6 report, the solves that stopped
      at the iteration cap or above their tolerance, the exact launch counts
@@ -157,7 +172,7 @@ MG_STEP = tuple(k for k in REPLACES if k not in BOXMG)
 TRACE_NAMES = {k: k + "_kernel" for k in REPLACES}
 # kernels redesigned as one launch per wrapper call (the profiler must see
 # one device kernel per call on the bench step)
-ONE_LAUNCH = ("step_ab", "step_c", "step_init", "tail_setup", "fused_rap", "elvira")
+ONE_LAUNCH = ("step_ab", "step_c", "step_init", "tail_setup", "fused_rap", "elvira", "curvature", "overlap")
 F32_RTOL = 1e-5
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and
 # non-tensor-core FLOP/s by dtype
@@ -1128,6 +1143,335 @@ def elvira_report_phase(device, vf_bench: np.ndarray, g_bench, parent) -> None:
         elvira_turns(device, parent_lib(parent), None, vf_bench, g_bench)
 
 
+def ghost_ring_field() -> tuple:
+    """A field of 259 x 193 cells with drops (r = 0.1) centred on each wall
+    and on a corner, so that valid cells lie beside the ghost ring on every
+    side. Returns (name, dx, dy, vf), vf in numpy f64."""
+    n, m = 259, 193
+    dx, dy = 1.0 / (n - 2), 1.3 / (m - 2)
+    X, Y = np.meshgrid((np.arange(n) - 0.5) * dx, (np.arange(m) - 0.5) * dy, indexing="ij")
+    phi = np.full(X.shape, np.inf)
+    for cx, cy in ((0.0, 0.65), (1.0, 0.4), (0.5, 0.0), (0.3, 1.3), (1.0, 1.3)):
+        phi = np.minimum(phi, np.hypot(X - cx, Y - cy) - 0.1)
+    # a band about two cells deep, so that every side holds mixed cells
+    return "valid cells beside the ghost ring", dx, dy, np.clip(0.5 - phi / (2 * dy), 0.0, 1.0)
+
+
+def curvature_fields(vf_bench: np.ndarray, g_bench) -> list:
+    """[(name, dx, dy, vf)]: the bench drop, the 25-drop 1023 x 771 box,
+    elvira's four limit fields and ghost_ring_field."""
+    g_odd, vf_odd = drops_vf(1023, 771, 25, seed=5)
+    return [("bench drop", g_bench.dx, g_bench.dy, vf_bench), ("25 drops 1023x771", g_odd.dx, g_odd.dy, vf_odd),
+            *elvira_limit_fields(), ghost_ring_field()]
+
+
+def plic_planes(vf_np: np.ndarray, dx: float, dy: float, dtype, device) -> tuple:
+    """(nx, ny, d, valid) of this commit's elvira on ``vf_np``: the inputs
+    of curvature."""
+    from fluidsolver_tpu_torch.vof import cuda_elvira
+
+    r = cuda_elvira.elvira_cuda(torch.as_tensor(vf_np, dtype=dtype, device=device), dx, dy)
+    return r.nx, r.ny, r.d, r.valid
+
+
+def check_curvature(errors: Errors, planes, dx: float, dy: float, main: bool, tag: str):
+    """curvature against its twin on ``planes`` (f64: 1e-10 relative and
+    1e-12 of max |twin| absolute; f32: the relative 1e-5). Returns the
+    kernel's curvature."""
+    from fluidsolver_tpu_torch.vof import cuda_curvature
+
+    ck = cuda_curvature.curvature_vm_cuda(*planes, dx, dy)
+    ct = cuda_curvature.curvature_vm_twin(*planes, dx, dy)
+    errors.compare("curvature", [ck], [ct], planes[0].dtype, 1e-10, 1e-12 * float(ct.abs().max()), main, tag)
+    return ck
+
+
+def curvature_limits_phase(device, errors: Errors) -> None:
+    """curvature against its twin on elvira's limit fields and
+    ghost_ring_field, f64 and f32: the lone mixed cell (fewer than two
+    segments) must give 0, every cell must be 0 without a valid cell, and
+    the ghost-ring field must hold valid cells in the first and last
+    interior rows and columns."""
+    for dtype in (torch.float64, torch.float32):
+        notes = []
+        for name, dx, dy, vf_np in [*elvira_limit_fields(), ghost_ring_field()]:
+            planes = plic_planes(vf_np, dx, dy, dtype, device)
+            ck = check_curvature(errors, planes, dx, dy, False, f"{str(dtype)[6:]} {name}")
+            valid = planes[3]
+            notes.append(f"{name}: {int(valid.sum())} valid, {int((ck != 0).sum())} nonzero")
+            if name in ("no mixed cell", "one mixed cell"):
+                require(not bool(ck.any()), f"curvature {str(dtype)[6:]} {name}: a nonzero curvature")
+            if name == ghost_ring_field()[0]:
+                edges = (valid[1, :], valid[-2, :], valid[:, 1], valid[:, -2])
+                require(all(bool(e.any()) for e in edges) and not bool(valid[[0, -1], :].any()),
+                        "the ghost-ring field has no valid cell on some side of the interior")
+        log(f"  {str(dtype)[6:]} curvature limit fields (259x193): agrees with its twin; " + "; ".join(notes))
+
+
+def curvature_with(lib, planes, dx: float, dy: float):
+    """cuda_curvature.curvature_vm_cuda through the library ``lib`` (None:
+    this commit's)."""
+    from fluidsolver_tpu_torch.vof import cuda_curvature
+
+    with kernel_library(lib):
+        return cuda_curvature.curvature_vm_cuda(*planes, dx, dy)
+
+
+def curvature_fill_ms(lib, planes, dx: float, dy: float) -> float:
+    """Device ms of ``lib``'s fill-only probe: curvature's launch with 0
+    written on every cell and no fit (its memory floor)."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    nx, ny, d, valid = planes
+    n, m = nx.shape
+    out = torch.empty_like(nx)
+    stream = _kernels.stream(nx.device)
+
+    def run():
+        rc = lib.fs_curvature_fill_probe(_kernels.dtype_code(nx.dtype), nx.data_ptr(), ny.data_ptr(), d.data_ptr(),
+                                         valid.data_ptr(), n, m, float(dx), float(dy), out.data_ptr(), stream)
+        require(rc == 0, f"the curvature fill-only probe did not launch: cudaError {rc}")
+
+    return time_ms(run, 50, kernel=True)
+
+
+def curvature_turns(device, old, new, vf_bench: np.ndarray, g_bench) -> None:
+    """curvature of the kernel library ``old`` against ``new``: bitwise
+    equal on curvature_fields' planes, f64 and f32; then both timed in
+    turns (old, new, new, old) on the bench drop in f32, beside ``new``'s
+    fill-only floor."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    fields = curvature_fields(vf_bench, g_bench)
+    for dtype in (torch.float64, torch.float32):
+        for name, dx, dy, vf_np in fields:
+            planes = plic_planes(vf_np, dx, dy, dtype, device)
+            require(torch.equal(curvature_with(old, planes, dx, dy), curvature_with(new, planes, dx, dy)),
+                    f"curvature {str(dtype)[6:]} {name}: the two libraries differ")
+        log(f"  {str(dtype)[6:]}: curvature bitwise equal to the parent's on the bench drop, the 25-drop box, "
+            "the four limit fields and the ghost-ring field")
+    dx, dy = g_bench.dx, g_bench.dy
+    planes = plic_planes(vf_bench, dx, dy, torch.float32, device)
+    ms = [time_ms(lambda: curvature_with(lib, planes, dx, dy), 50, kernel=True) for lib in (old, new, new, old)]
+    fill = curvature_fill_ms(new or _kernels.lib(), planes, dx, dy)
+    log(f"  curvature on the bench drop (1026x1026 f32), device ms in turns: parent {ms[0]:.4f}, this {ms[1]:.4f}, "
+        f"this {ms[2]:.4f}, parent {ms[3]:.4f}; this / parent = {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}; "
+        f"fill-only floor {fill:.4f}")
+
+
+def curvature_report_phase(device, vf_bench: np.ndarray, g_bench, parent) -> None:
+    """curvature on the bench drop (f32): the valid cells and the tiles
+    that hold them, the kernel's time beside its fill-only floor; with
+    ``parent``, the parent's kernel held bitwise to this one's and timed in
+    turns (curvature_turns)."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+    from fluidsolver_tpu_torch.vof import cuda_curvature
+
+    dx, dy = g_bench.dx, g_bench.dy
+    planes = plic_planes(vf_bench, dx, dy, torch.float32, device)
+    n_valid, tiles, _ = mixed_census(planes[3], ELVIRA_TILE)
+    t = time_ms(lambda: cuda_curvature.curvature_vm_cuda(*planes, dx, dy), 50, kernel=True)
+    fill = curvature_fill_ms(_kernels.lib(), planes, dx, dy)
+    log(f"  curvature on the bench drop (1026x1026 f32): {n_valid} valid cells in {tiles} "
+        f"{ELVIRA_TILE[0]}x{ELVIRA_TILE[1]} tiles; kernel {t:.4f} ms, fill-only floor {fill:.4f} ms, "
+        f"the fit {t - fill:.4f} ms")
+    if parent is not None:
+        curvature_turns(device, parent_lib(parent), None, vf_bench, g_bench)
+
+
+def corner_drop(g, vf_np: np.ndarray) -> np.ndarray:
+    """``vf_np`` with a liquid drop (r = 0.05) over the box's last interior
+    corner, so that the fill lanes, which gather that corner through clamped
+    indices, find neighbours above the cutoff."""
+    X, Y = np.meshgrid(g.xm, g.ym, indexing="ij")
+    phi = np.hypot(X - g.xm[-2], Y - g.ym[-2]) - 0.05
+    return np.maximum(vf_np, np.clip(0.5 - phi / g.dx, 0.0, 1.0))
+
+
+def swirl_lanes(g, vf_np: np.ndarray, dtype, device, budget=None) -> tuple:
+    """(overlap's arguments, active cells) of one advection of ``vf_np``
+    through the swirl at CFL 0.5 with ``budget`` lanes (None: the default)."""
+    from fluidsolver_tpu_torch.vof import advect, cuda_elvira
+
+    vf = torch.as_tensor(vf_np, dtype=dtype, device=device)
+    rec = cuda_elvira.elvira_cuda(vf, g.dx, g.dy)
+    U, V, Ui, Vi = swirl_velocity(g, dtype, device)
+    dt = torch.tensor(0.5 * g.dx, dtype=dtype, device=device)
+    lanes = advect.prepare_lanes(vf, U, V, Ui, Vi, g, dt, budget or advect.default_max_active(g.nx, g.ny))
+    return (lanes.slots_x, lanes.slots_y, vf, rec, lanes.iig, lanes.jjg, g.dx, g.dy), int(lanes.n_active)
+
+
+def overlap_cases(device, dtype, vf_bench: np.ndarray, g_bench) -> list:
+    """[(name, overlap's arguments, active cells)]: the swirl lanes of the
+    bench drop and of the 25-drop 1023 x 771 box; on the box, budgets of
+    half the active cells (every lane active, overflow) and of exactly the
+    active cells (no fill lane); the box with a liquid drop over the corner
+    that the fill lanes gather; a single lane of the bench drop."""
+    g_odd, vf_odd = drops_vf(1023, 771, 25, seed=5)
+    bench, n_bench = swirl_lanes(g_bench, vf_bench, dtype, device)
+    box, n_box = swirl_lanes(g_odd, vf_odd, dtype, device)
+    corner, n_corner = swirl_lanes(g_odd, corner_drop(g_odd, vf_odd), dtype, device)
+    return [("bench drop", bench, n_bench), ("25 drops 1023x771", box, n_box),
+            ("25 drops, budget n_active // 2", swirl_lanes(g_odd, vf_odd, dtype, device, n_box // 2)[0], n_box),
+            ("25 drops, budget n_active", swirl_lanes(g_odd, vf_odd, dtype, device, n_box)[0], n_box),
+            ("25 drops, a liquid corner", corner, n_corner),
+            ("bench drop, one lane", swirl_lanes(g_bench, vf_bench, dtype, device, 1)[0], n_bench)]
+
+
+def working_pairs(args) -> int:
+    """(lane, neighbour) pairs whose neighbour lies above the cutoff: the
+    pairs that run a clip chain."""
+    from fluidsolver_tpu_torch.constants import vf_cutoffs
+    from fluidsolver_tpu_torch.vof import cuda_advect
+
+    _, _, vf, rec, iig, jjg, _, _ = args
+    lo, _ = vf_cutoffs(vf.dtype)
+    return int((cuda_advect.gather_neighbourhood(vf, rec, iig, jjg)[0] > lo).sum())
+
+
+def check_overlap(errors: Errors, args, main: bool, tag: str) -> None:
+    """overlap against its twin on every lane (f64: 1e-13 absolute on the
+    overlap, 1e-10 relative and 1e-15 absolute on the start area; f32: the
+    relative 1e-5)."""
+    from fluidsolver_tpu_torch.vof import cuda_advect
+
+    ok_, ak = cuda_advect.overlap_cuda(*args)
+    ot, at = cuda_advect.overlap_twin(*args)
+    dtype = args[2].dtype
+    errors.compare("overlap", [ok_], [ot], dtype, 0.0, 1e-13, main, tag + " overlap")
+    errors.compare("overlap", [ak], [at], dtype, 1e-10, 1e-15, main, tag + " start area")
+
+
+def overlap_limits_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> None:
+    """overlap against its twin on overlap_cases, f64 and f32, with each
+    case's lanes and working pairs."""
+    for dtype in (torch.float64, torch.float32):
+        notes = []
+        for name, args, n_active in overlap_cases(device, dtype, vf_bench, g_bench):
+            check_overlap(errors, args, False, f"{str(dtype)[6:]} {name}")
+            notes.append(f"{name}: {args[0].shape[1]} lanes, {n_active} active cells, "
+                         f"{working_pairs(args)} working pairs")
+        log(f"  {str(dtype)[6:]} overlap agrees with its twin on every lane; " + "; ".join(notes))
+
+
+def overlap_with(lib, args) -> list:
+    """cuda_advect.overlap_cuda through the library ``lib`` (None: this
+    commit's): the overlap and the start area."""
+    from fluidsolver_tpu_torch.vof import cuda_advect
+
+    with kernel_library(lib):
+        return list(cuda_advect.overlap_cuda(*args))
+
+
+def one_lane(args, k: int) -> tuple:
+    """overlap's arguments cut to lane ``k`` alone."""
+    sx, sy, vf, rec, iig, jjg, dx, dy = args
+    return (sx[:, k:k + 1].contiguous(), sy[:, k:k + 1].contiguous(), vf, rec, iig[k:k + 1].contiguous(),
+            jjg[k:k + 1].contiguous(), dx, dy)
+
+
+def overlap_floors(lib, args) -> tuple:
+    """Device ms of ``lib``'s cut-short overlap on ``args``: an empty launch
+    of the same grid, the gathers and the cutoff test without the chains
+    (the gather floor), and the whole kernel on the lane with the most
+    working pairs alone (one chain's latency: the dependency floor)."""
+    from fluidsolver_tpu_torch.constants import vf_cutoffs
+    from fluidsolver_tpu_torch.poisson import _kernels
+    from fluidsolver_tpu_torch.vof import cuda_advect
+
+    sx, sy, vf, rec, iig, jjg, dx, dy = args
+    n, mm = vf.shape
+    m = sx.shape[1]
+    out = torch.empty((2, m), dtype=vf.dtype, device=vf.device)
+    lo, _ = vf_cutoffs(vf.dtype)
+    stream = _kernels.stream(vf.device)
+
+    def probe(stage):
+        rc = lib.fs_overlap_probe(stage, _kernels.dtype_code(vf.dtype), sx.data_ptr(), sy.data_ptr(), iig.data_ptr(),
+                                  jjg.data_ptr(), vf.data_ptr(), rec.valid.data_ptr(), rec.nx.data_ptr(),
+                                  rec.ny.data_ptr(), rec.d.data_ptr(), n, mm, m, float(dx), float(dy), lo,
+                                  out[0].data_ptr(), out[1].data_ptr(), stream)
+        require(rc == 0, f"the overlap probe did not launch: cudaError {rc}")
+
+    pairs = (cuda_advect.gather_neighbourhood(vf, rec, iig, jjg)[0] > lo).sum(0)
+    alone = one_lane(args, int(pairs.argmax()))
+    with kernel_library(lib):
+        t_one = time_ms(lambda: cuda_advect.overlap_cuda(*alone), 50, kernel=True)
+    return time_ms(lambda: probe(0), 50, kernel=True), time_ms(lambda: probe(1), 50, kernel=True), t_one
+
+
+def bench_step_overlap_args(device, g, cfg, vf0, n_steps: int = 2) -> list:
+    """The arguments of overlap's call in each of the first ``n_steps``
+    steps of the bench configuration (phase 6's state, f32), recorded at
+    the wrapper."""
+    from fluidsolver_tpu_torch.solvers import twophase
+    from fluidsolver_tpu_torch.vof import cuda_advect
+
+    calls = []
+    overlap = cuda_advect.overlap
+
+    def recording(*args):
+        calls.append(args)
+        return overlap(*args)
+
+    cuda_advect.overlap = recording
+    try:
+        state = twophase.init_two_phase_state(g, cfg, vf0, torch.float32, device)
+        step = twophase.make_step(g, cfg, torch.float32, device)
+        for _ in range(n_steps):
+            state = step(state, 1e9)
+    finally:
+        cuda_advect.overlap = overlap
+    require(len(calls) == n_steps, f"{len(calls)} overlap calls in {n_steps} bench steps")
+    return calls
+
+
+def overlap_turns(device, old, new, vf_bench: np.ndarray, g_bench, step_args: list) -> None:
+    """overlap of the kernel library ``old`` against ``new``: both outputs
+    bitwise equal on every lane of overlap_cases, f64 and f32; then both
+    timed in turns (old, new, new, old) in f32 on the bench drop's swirl
+    lanes and on the lanes of the bench step's first advections
+    (``step_args``)."""
+    for dtype in (torch.float64, torch.float32):
+        for name, args, _ in overlap_cases(device, dtype, vf_bench, g_bench):
+            want, got = overlap_with(old, args), overlap_with(new, args)
+            require(all(torch.equal(a, b) for a, b in zip(want, got)),
+                    f"overlap {str(dtype)[6:]} {name}: the two libraries' overlap or start area differ")
+        log(f"  {str(dtype)[6:]}: overlap's overlap and start area bitwise equal to the parent's on every lane of "
+            "the bench drop, the 25-drop box, its budgets n_active // 2 and n_active, its liquid corner and one lane")
+    swirl, _ = swirl_lanes(g_bench, vf_bench, torch.float32, device)
+    timed = [("the bench drop's swirl lanes", swirl)] + [
+        (f"the lanes of bench step {k + 1}'s advection", args) for k, args in enumerate(step_args)]
+    for name, args in timed:
+        ms = [time_ms(lambda: overlap_with(lib, args), 50, kernel=True) for lib in (old, new, new, old)]
+        log(f"  overlap on {name} (f32, {args[0].shape[1]} lanes, {working_pairs(args)} working pairs), device ms in "
+            f"turns: parent {ms[0]:.4f}, this {ms[1]:.4f}, this {ms[2]:.4f}, parent {ms[3]:.4f}; this / parent = "
+            f"{(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
+
+
+def overlap_report_phase(device, vf_bench: np.ndarray, g_bench, cfg_bench, parent) -> list:
+    """overlap in f32 on the bench drop's swirl lanes and on the lanes of
+    the bench step's first two advections: lanes and working pairs, the
+    kernel's time beside its floors (overlap_floors); with ``parent``, the
+    parent's kernel held bitwise to this one's and timed in turns
+    (overlap_turns). Returns the bench steps' overlap arguments."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+    from fluidsolver_tpu_torch.vof import cuda_advect
+
+    swirl, n_swirl = swirl_lanes(g_bench, vf_bench, torch.float32, device)
+    step_args = bench_step_overlap_args(device, g_bench, cfg_bench, vf_bench)
+    for name, args in [("the bench drop's swirl lanes", swirl)] + [
+            (f"the lanes of bench step {k + 1}'s advection", a) for k, a in enumerate(step_args)]:
+        t = time_ms(lambda: cuda_advect.overlap_cuda(*args), 50, kernel=True)
+        empty, gather, one = overlap_floors(_kernels.lib(), args)
+        log(f"  overlap on {name} (f32): {args[0].shape[1]} lanes, {working_pairs(args)} working pairs of "
+            f"{9 * args[0].shape[1]}; kernel {t:.4f} ms; floors: empty launch {empty:.4f}, gathers and cutoff test "
+            f"{gather:.4f}, the busiest lane alone {one:.4f}")
+    if parent is not None:
+        overlap_turns(device, parent_lib(parent), None, vf_bench, g_bench, step_args)
+    return step_args
+
+
 def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> dict:
     """Returns name -> (kernel ms, twin ms, bound ms, bound by)."""
     from fluidsolver_tpu_torch.vof import advect, cuda_advect, cuda_curvature, cuda_elvira, curvature, plic
@@ -1146,10 +1490,8 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
             rt, n_off = check_elvira(errors, vf, dx, dy, main, tag)
             n_mixed = int(rt.valid.sum())
 
-            # curvature on the twin's planes
-            ck = cuda_curvature.curvature_vm_cuda(rt.nx, rt.ny, rt.d, rt.valid, dx, dy)
-            ct = cuda_curvature.curvature_vm_twin(rt.nx, rt.ny, rt.d, rt.valid, dx, dy)
-            errors.compare("curvature", [ck], [ct], dtype, 1e-10, 1e-12 * float(ct.abs().max()), main, tag)
+            planes = (rt.nx, rt.ny, rt.d, rt.valid)
+            check_curvature(errors, planes, dx, dy, main, tag)
 
             # overlap on the lanes of one advection through a swirl at CFL 0.5
             U, V, Ui, Vi = swirl_velocity(g, dtype, device)
@@ -1157,10 +1499,7 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
             m = advect.default_max_active(g.nx, g.ny)
             lanes = advect.prepare_lanes(vf, U, V, Ui, Vi, g, dt, m)
             args = (lanes.slots_x, lanes.slots_y, vf, rt, lanes.iig, lanes.jjg, dx, dy)
-            ok_, ak = cuda_advect.overlap_cuda(*args)
-            ot, at = cuda_advect.overlap_twin(*args)
-            errors.compare("overlap", [ok_], [ot], dtype, 0.0, 1e-13, main, tag + " overlap")
-            errors.compare("overlap", [ak], [at], dtype, 1e-10, 1e-15, main, tag + " start area")
+            check_overlap(errors, args, main, tag)
             n_active = int(lanes.n_active)
             log(f"  {tag}: {n_mixed} mixed cells, {n_active} active of {m} lanes: "
                 f"elvira ({n_off} near-tie cells), curvature and overlap agree")
@@ -1172,7 +1511,6 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
                                    # vf in; nx, ny, d and a byte plane out;
                                    # ~4000 flops per mixed cell
                                    *bound((2 * s + 1) * nm + 2 * s * nm, 4000 * n_mixed, dtype))
-                planes = (rt.nx, rt.ny, rt.d, rt.valid)
                 times["curvature"] = (
                     time_ms(lambda: cuda_curvature.curvature_vm_cuda(*planes, dx, dy), 50, kernel=True),
                     time_ms(lambda: cuda_curvature.curvature_vm_twin(*planes, dx, dy), 3),
@@ -1993,7 +2331,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one H100.")
     ap.add_argument("--parent", default=None,
                     help="a checkout of another commit: also hold its fused_rap, tail_setup, fused_smooth, "
-                         "elvira, step_ab, step_c and step_init bitwise to this one's and time them and its "
+                         "elvira, curvature, overlap, step_ab, step_c and step_init bitwise to this one's and time "
+                         "them and its "
                          "tail_cycle against this one's (phases 3, 3b, 3c)")
     parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
@@ -2041,6 +2380,10 @@ def main(argv=None) -> int:
         times.update(vof_kernel_phase(device, errors, vf_bench, g_bench))
         elvira_limits_phase(device, errors)
         elvira_report_phase(device, vf_bench, g_bench, parent)
+        curvature_limits_phase(device, errors)
+        curvature_report_phase(device, vf_bench, g_bench, parent)
+        overlap_limits_phase(device, errors, vf_bench, g_bench)
+        overlap_report_phase(device, vf_bench, g_bench, cfg_bench, parent)
         phase = "3c fused kernels vs twins"
         log("phase 3c: the fused PCG iteration and momentum kernels against their twins on the card")
         times.update(fused_kernel_phase(device, errors))

@@ -73,9 +73,15 @@ _SIGNATURES = {
     "fs_elvira_fill_probe": (_I, _P, _I, _I, _D, _D, _D, _D, _P, _P, _P),
     # dtype, nx, ny, d, valid, N, M, dx, dy, out, stream
     "fs_curvature": (_I, _P, _P, _P, _P, _I, _I, _D, _D, _P, _P),
+    # fs_curvature's arguments (0 on every cell, no fit: a measurement probe)
+    "fs_curvature_fill_probe": (_I, _P, _P, _P, _P, _I, _I, _D, _D, _P, _P),
     # dtype, slots_x, slots_y, lane_i, lane_j, vf, valid, nx, ny, d, N, M, m,
     # dx, dy, lo, overlap, area, stream
     "fs_overlap": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P, _P, _P),
+    # stage (0 an empty launch, 1 without the chains), then fs_overlap's
+    # arguments (a measurement probe)
+    "fs_overlap_probe": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P,
+                         _P, _P),
     # dtype, op, b, x, x_out, N, M, red_first, stream
     "fs_rb_sweep": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }

@@ -7,9 +7,10 @@ neighbour's PLIC liquid half-plane; the areas of the neighbours whose
 fraction exceeds the mixed-cell cutoff are summed. Returns (overlap,
 start polygon area), both (m,).
 
-CUDA source: ``csrc/overlap.cu`` (one thread per lane and neighbour, the
-polygon in shared memory, reading the neighbourhood straight from the
-fields through the lane indices); replaces the TPU kernel
+CUDA source: ``csrc/overlap.cu`` (per block of lanes, a shared list of
+the (lane, neighbour) pairs above the cutoff, one thread a listed pair's
+clip chain with the polygon in shared memory, one thread a lane's sum;
+the other pairs run no clip); replaces the TPU kernel
 ``fluidsolver_tpu/vof/pallas_advect.py:157``. The plain PyTorch twin
 gathers the (5, 9, m) neighbourhood and runs the fixed-K clip chain of
 ``advect.overlap_from_neighbors``; it sums the shoelace terms and the 9

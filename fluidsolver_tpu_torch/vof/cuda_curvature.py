@@ -1,8 +1,9 @@
 """Kernel 11, ``curvature``: the volume-matching quadratic curvature of every
 interior mixed cell in one launch.
 
-CUDA source: ``csrc/curvature.cu`` (one thread per cell; each valid cell
-computes the PLIC segments of its 3x3 neighbourhood itself); replaces the
+CUDA source: ``csrc/curvature.cu`` (one block per strip of cells: the
+zeros, a shared list of the strip's valid cells, one thread a (cell,
+neighbour) segment, one thread a cell's fit); replaces the
 TPU kernel ``fluidsolver_tpu/vof/pallas_curvature.py:92``. The kernel
 rotates with acos/cos/sin as the JAX package's plain path does (the TPU
 kernel's trig-free rotation agrees with it only to about 1e-6). The plain

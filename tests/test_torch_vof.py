@@ -251,6 +251,46 @@ def test_curvature_twin_matches_jax():
     np.testing.assert_array_equal(got[~np.asarray(rec.valid)], 0.0)
 
 
+def curvature_limit_fields(g):
+    """vf of the limit inputs of the curvature kernel on the grid ``g``: a
+    lone mixed cell in a 0 / 1 step (fewer than two segments: 0), every
+    cell mixed (seeded noise in (0.02, 0.98)), and drops centred on the
+    walls, so that valid cells lie beside the ghost ring on every side."""
+    n, m = g.shape_center
+    lone = np.where(np.arange(n)[:, None] < n // 2, 0.0, 1.0) * np.ones((n, m))
+    lone[n // 2 - 1, m // 2] = 0.4
+    X, Y = np.meshgrid(g.xm, g.ym, indexing="ij")
+    phi = np.full(X.shape, np.inf)
+    for cx, cy in ((0.0, 0.65), (1.0, 0.4), (0.5, 0.0), (0.3, 1.3)):
+        phi = np.minimum(phi, np.hypot(X - cx, Y - cy) - 0.2)
+    return {"lone mixed cell": lone,
+            "every cell mixed": np.random.default_rng(29).uniform(0.02, 0.98, (n, m)),
+            "beside the ghost ring": np.clip(0.5 - phi / (2 * max(g.dx, g.dy)), 0.0, 1.0)}
+
+
+@pytest.mark.parametrize("name", ["lone mixed cell", "every cell mixed", "beside the ghost ring"])
+def test_curvature_twin_matches_jax_limit_fields(name):
+    """The twin, which the CUDA kernel is held to on the card, against
+    curvature_quad_volume_matching on the same planes at the limits of the
+    kernel's per-block list: no second segment, a full list, neighbours on
+    the ghost ring."""
+    g, jg, _ = vof_case()
+    vf = curvature_limit_fields(g)[name]
+    rec = jplic.elvira(jnp.asarray(vf), jg.dx, jg.dy)
+    valid = np.asarray(rec.valid)
+    want = np.asarray(jcurv.curvature_quad_volume_matching(jnp.asarray(vf), rec, jg))
+    got = cuda_curvature.curvature_vm_twin(T(rec.nx), T(rec.ny), T(rec.d), T(valid), g.dx, g.dy).numpy()
+    assert_close(got, want, 1e-10, 1e-12 * np.abs(want).max(), name)
+    np.testing.assert_array_equal(got[~valid], 0.0)
+    if name == "lone mixed cell":
+        assert valid.sum() == 1 and not got.any()
+    elif name == "every cell mixed":
+        assert valid[1:-1, 1:-1].all() and np.count_nonzero(want) > 1500
+    else:
+        assert all(e.any() for e in (valid[1], valid[-2], valid[:, 1], valid[:, -2]))
+        assert np.count_nonzero(got[1]) and np.count_nonzero(got[:, 1])
+
+
 # ---- advection (kernel #12's twin) ------------------------------------------------
 def advect_inputs(g, vf, dt_frac=0.5):
     U, V = swirl(g)
@@ -279,6 +319,46 @@ def test_overlap_twin_matches_jax(mode, monkeypatch):
     assert int(lanes.n_active) > 500
     assert_close(got_ov, want_ov, 0.0, 1e-13, "overlap")
     assert_close(got_area, want_area, 1e-10, 1e-15, "start area")
+
+
+def test_overlap_twin_matches_jax_liquid_corner(monkeypatch):
+    """Fill lanes that do work: a liquid drop over the last interior corner,
+    which the fill lanes gather through clamped indices. The twin against
+    advect._overlap_sparse on every lane; and each (lane, neighbour) pair
+    below the cutoff, taken alone (the other neighbours' fractions set to
+    0), gives +0 in both packages: the CUDA kernel runs no clip chain for
+    such a pair and leaves +0 in its slot."""
+    monkeypatch.setattr(jadv, "_PALLAS_OVERRIDE", "off")
+    g, jg, vf = vof_case()
+    X, Y = np.meshgrid(g.xm, g.ym, indexing="ij")
+    vf = np.maximum(vf, np.clip(0.5 - (np.hypot(X - g.xm[-2], Y - g.ym[-2]) - 0.15) / g.dx, 0.0, 1.0))
+    rec = plic.elvira(T(vf), g.dx, g.dy)
+    Ut, Vt, Ui, Vi, dt_t, _ = advect_inputs(g, vf)
+    lanes = advect.prepare_lanes(T(vf), Ut, Vt, Ui, Vi, g, dt_t, advect.default_max_active(g.nx, g.ny))
+    got_ov, got_area = cuda_advect.overlap_twin(lanes.slots_x, lanes.slots_y, T(vf), rec,
+                                                lanes.iig, lanes.jjg, g.dx, g.dy)
+    gathered = cuda_advect.gather_neighbourhood(T(vf), rec, lanes.iig, lanes.jjg).numpy()
+    lo, _ = vf_cutoffs(torch.float64)
+    fill = lanes.is_fill.numpy()
+    assert fill.sum() > 500 and (gathered[0][:, fill] > lo).all(axis=0).any()
+    sx = [jnp.asarray(s) for s in lanes.slots_x.numpy()]
+    sy = [jnp.asarray(s) for s in lanes.slots_y.numpy()]
+    want_ov, want_area = jadv._overlap_sparse(sx, sy, jnp.asarray(gathered), g.dx, g.dy, jnp.float64)
+    assert_close(got_ov, want_ov, 0.0, 1e-13, "overlap")
+    assert_close(got_area, want_area, 1e-10, 1e-15, "start area")
+    assert np.count_nonzero(got_ov.numpy()[fill]) > 0
+
+    vx, vy, n = advect.pad_slots(lanes.slots_x, lanes.slots_y)
+    below = gathered[0] <= lo
+    assert below.any() and (~below).any()
+    for k in range(9):
+        alone = gathered.copy()
+        alone[0] = 0.0
+        alone[0, k] = gathered[0, k]
+        got_k = advect.overlap_from_neighbors(vx, vy, n, T(alone), g.dx, g.dy).numpy()
+        want_k = np.asarray(jadv._overlap_sparse(sx, sy, jnp.asarray(alone), g.dx, g.dy, jnp.float64)[0])
+        for r in (got_k[below[k]], want_k[below[k]]):
+            assert np.all(r == 0.0) and not np.signbit(r).any()
 
 
 def test_advect_matches_jax():
