@@ -94,6 +94,12 @@ result line):
      pressure method (pcg, bicgstab, gmres, mgsolve) and preconditioner
      (mg, boxmg, jacobi, none) and the direct solve; the "mg" runs must
      launch rb_sweep;
+  4d. the driver (``driver.Simulation``) on the card against the
+     CPU, f64: two_phase_channel(ny=16), tol 1e-11, 3 steps (every observed
+     column within 1e-9 of its scale, iter(p) within 1 a step, the residual
+     below the tolerance; final U, V, p, vf within 1e-9); vof_tgv(n=64), 10
+     kinematic steps (vf within 1e-9, every step's volume error below
+     1e-12);
   5. lid_driven(n=1024), f32, 20 steps: ms/step, PCG iterations, max |div|,
      host syncs per step, launch counts (the V-cycle and the PCG kernels),
      and the kernels seen by torch.profiler over make_step plus one step;
@@ -110,7 +116,18 @@ result line):
      preconditioner), 10 steps: the phase 6 report, the solves that stopped
      at the iteration cap or above their tolerance, the exact launch counts
      (rb_sweep: (PCG iterations + solves) x sweeps per V-cycle; kernels 5-8
-     and 10-12; no BoxMG kernel), and a profiler split of 2 steps.
+     and 10-12; no BoxMG kernel), and a profiler split of 2 steps;
+  8. the driver at full size: (a) two_phase_channel(ny=448) (2240 x 448,
+     f32, VTK), 10 steps in turns with 10 bare step calls from the same
+     initial state (bare, driver, driver, bare): the state torch.equal to
+     the bare loop's, host syncs exactly the bare loop's + 1 a step + 1 a
+     frame (at least two frames), the same launches of the eleven kernels,
+     ms/step of both (CUDA events) and ms per VTK frame; (b) driver.main on
+     stationary_drop(n=256), f32, three steps with --profile: n_steps + 1
+     monitor rows, the twophase.pressure range in the trace; (c) vof_tgv(
+     n=1024), f64, 20 kinematic steps: the Taylor-Green invariants, one
+     elvira and one overlap launch a step and no other kernel, one host sync
+     a step, no host read in the step, ms/step.
 The second-to-last line is a JSON object with one entry per kernel (the
 launches from phase 6, rb_sweep's from phase 7); the last line is
 {"ok": true, "device": {...}}.
@@ -125,9 +142,11 @@ import functools
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2026,6 +2045,88 @@ def solver_cross_check_phase(device) -> None:
         require((sweeps > 0) == (solver == "mg"), f"{method} + {solver}: {sweeps} rb_sweep launches")
 
 
+# ---- phase 4d --------------------------------------------------------------
+def driver_rows(sim, stash=None, **run) -> list:
+    """Run ``sim`` (a ``driver.Simulation``): the observed values of its
+    initial state and of each step; ``stash(state)``, if given, is called
+    after each step."""
+    rows = [dict(sim.observe())]
+
+    def record(state):
+        rows.append(dict(sim.observe()))
+        if stash is not None:
+            stash(state)
+
+    sim.run(callback=record, **run)
+    return rows
+
+
+def check_rows(gpu: list, cpu: list, tol: float, dx: float, pressure_tol: float) -> None:
+    """The observed columns of a GPU run against a CPU run: each to ``tol``
+    relative to its column's scale, except the solver's exit values (the
+    residual below the tolerance in both, the iteration count within 1 a
+    step, max|div| within ``tol`` of max|U|/dx)."""
+    require(len(gpu) == len(cpu), f"{len(gpu)} against {len(cpu)} observed rows")
+    worst = {}
+    for name in cpu[0]:
+        a = np.array([row[name] for row in gpu])
+        b = np.array([row[name] for row in cpu])
+        diff = float(np.abs(a - b).max())
+        if name == "iter(p)":
+            require(diff <= 1, f"iter(p) differs by {diff}: gpu {a.tolist()}, cpu {b.tolist()}")
+        elif name == "res(p)":
+            require(max(a.max(), b.max()) <= pressure_tol, f"res(p) above the tolerance: {a}, {b}")
+        else:
+            scale = 1.0 if name in ("min(vof)", "max(vof)") else (np.abs(b).max() or 1.0)
+            if name == "max(div)":
+                scale = max(np.abs([row["max(U)"] for row in cpu]).max(), 1.0) / dx
+            worst[name] = diff / scale
+            require(diff <= tol * scale, f"column {name}: gpu {a.tolist()}, cpu {b.tolist()}")
+    log("  observed columns, max |gpu - cpu| over the column's scale: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+
+
+def driver_cross_check_phase(device) -> None:
+    """The driver (``Simulation``) on the card against the CPU, f64:
+    two_phase_channel(ny=16), tol 1e-11 (1e-9 on subiterations 0-3), 3
+    steps; vof_tgv(n=64), 10 kinematic steps."""
+    from fluidsolver_tpu_torch import driver
+    from fluidsolver_tpu_torch.cases import get_case
+
+    case = get_case("two_phase_channel", ny=16)
+    case.cfg = dataclasses.replace(case.cfg, pressure_tol=1e-11, pressure_tol_intermediate=1e-9)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        sim = driver.Simulation(case, dtype=torch.float64, device=dev, save_output=False)
+        rows = driver_rows(sim, max_steps=3)
+        fl = sim.state.flow
+        runs.append((rows, {k: t.cpu().numpy() for k, t in
+                            (("U", fl.U), ("V", fl.V), ("p", fl.p), ("vf", sim.state.vf))}))
+    (g_rows, g), (c_rows, c) = runs
+    log(f"  two_phase_channel(16): iter(p) per step gpu {[int(r['iter(p)']) for r in g_rows[1:]]}, "
+        f"cpu {[int(r['iter(p)']) for r in c_rows[1:]]}")
+    check_rows(g_rows, c_rows, 1e-9, case.grid.dx, case.cfg.pressure_tol)
+    for k in g:
+        rel = float(np.abs(g[k] - c[k]).max() / np.abs(c[k]).max())
+        log(f"  two_phase_channel(16) {k}: max|gpu - cpu| / max|cpu| = {rel:.3e}")
+        require(rel <= 1e-9, f"driver two_phase_channel(16) f64 {k} differs by {rel:.3e} > 1e-9")
+
+    case = get_case("vof_tgv", n=64)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        errs = []
+        sim = driver.Simulation(case, dtype=torch.float64, device=dev, save_output=False)
+        driver_rows(sim, stash=lambda s: errs.append(s.vof_vol_error), max_steps=10)
+        runs.append((sim.state.vf.cpu().numpy(), [float(e) for e in errs], sim.n_steps))
+    (g_vf, g_err, g_n), (c_vf, c_err, c_n) = runs
+    rel = float(np.abs(g_vf - c_vf).max() / np.abs(c_vf).max())
+    log(f"  vof_tgv(64), {g_n} steps: vf max|gpu - cpu| / max|cpu| = {rel:.3e}; "
+        f"vof_vol_error per step gpu max {max(g_err):.3e}, cpu max {max(c_err):.3e}")
+    require(g_n == c_n == 10, f"{g_n}, {c_n} kinematic steps")
+    require(rel <= 1e-9, f"vof_tgv(64) f64 vf differs by {rel:.3e} > 1e-9")
+    require(max(g_err + c_err) < 1e-12, "vof_tgv(64): a step's volume error is not below 1e-12")
+
+
 # ---- phase 5 ---------------------------------------------------------------
 def full_size_phase(device) -> None:
     from fluidsolver_tpu_torch.cases import get_case
@@ -2325,6 +2426,206 @@ def mg_bench_phase(device, g, cfg, vf0) -> dict:
     return launches
 
 
+# ---- phase 8 ---------------------------------------------------------------
+def event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def step_ms(events: list) -> list:
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def state_tensors(state) -> dict:
+    out = {f"flow.{f.name}": getattr(state.flow, f.name) for f in dataclasses.fields(state.flow)}
+    out.update({f.name: getattr(state, f.name) for f in dataclasses.fields(state) if f.name != "flow"})
+    return out
+
+
+def driver_channel_phase(device) -> None:
+    """(a) ``Simulation`` on two_phase_channel(ny=448) (2240 x 448, f32,
+    VTK frames), 10 steps from one initial state, in turns with 10 bare
+    step calls (bare, driver, driver, bare): the same state bit for bit,
+    the bare loop's host syncs plus one a step and one a frame, the same
+    kernel launches; ms/step of both and ms per frame."""
+    from fluidsolver_tpu_torch import driver
+    from fluidsolver_tpu_torch.cases import get_case
+    from fluidsolver_tpu_torch.core import sync
+    from fluidsolver_tpu_torch.io.writer import SaveCadence
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    n_steps = 10
+    case = get_case("two_phase_channel", ny=448)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        sim = driver.Simulation(case, output_dir=out, writer="vtk", device=device)
+        log(f"  Simulation set-up ({case.grid.nx} x {case.grid.ny}, f32): {time.perf_counter() - t0:.1f} s; "
+            f"writer {type(sim.writer).__name__}")
+        require(sim.dtype == torch.float32, "the driver's default dtype must be float32")
+        state0 = sim.state
+        step = case.make_step(torch.float32, device)
+
+        def bare():
+            _kernels.launches.clear()
+            s0 = sync.count
+            state, events, times = state0, [event()], []
+            for _ in range(n_steps):
+                state = step(state, case.t_end)
+                events.append(event())
+                times.append((state.flow.t, state.flow.dt))
+            syncs = sync.count - s0
+            launches = dict(_kernels.launches)
+            return state, launches, syncs, step_ms(events), [(float(t), float(dt)) for t, dt in times]
+
+        frame_ms = []
+        write = sim.writer.write
+
+        def timed_write(t):
+            t1 = time.perf_counter()
+            path = write(t)
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+            return path
+
+        sim.writer.write = timed_write
+
+        def run_driver(bare_state, bare_launches, bare_syncs, restart: bool):
+            if restart:
+                sim.state = state0
+            n_frames = len(frame_ms)
+            _kernels.launches.clear()
+            s0 = sync.count
+            events = [event()]
+            sim.run(max_steps=n_steps, callback=lambda s: events.append(event()))
+            syncs = sync.count - s0
+            launches = dict(_kernels.launches)
+            frames = len(frame_ms) - n_frames
+            for f in os.listdir(out):
+                if f.endswith(".vtk"):
+                    os.remove(os.path.join(out, f))
+            log(f"  driver run: {sim.n_steps} steps, {frames} frames, host syncs {syncs} "
+                f"(bare {bare_syncs} + {n_steps} + {frames} frames{' + 1: the state was set' if restart else ''})")
+            require(sim.n_steps == n_steps, f"the driver ran {sim.n_steps} steps")
+            require(frames == expected_frames, f"{frames} frames written, expected {expected_frames}")
+            require(syncs == bare_syncs + n_steps + frames + restart,
+                    "the driver must add exactly one host sync a step and one a frame to the bare steps'")
+            require(launches == bare_launches, f"driver launches {launches} differ from the bare loop's "
+                    f"{bare_launches}")
+            bare_t = state_tensors(bare_state)
+            for k, t in state_tensors(sim.state).items():
+                require(torch.equal(t, bare_t[k]), f"the driver's {k} is not the bare loop's")
+            return step_ms(events)
+
+        b1 = bare()
+        log(f"  bare loop: host syncs {b1[2]}, launches {b1[1]}")
+        require(all(b1[1].get(k, 0) > 0 for k in BOXMG_STEP), "a kernel of the BoxMG step was not launched")
+        # the first frame after the initial one falls at step 5
+        sim.case.dt_write = b1[4][4][0]
+        cadence = SaveCadence(sim.case.dt_write, case.t_end)
+        expected_frames = 1 + sum(cadence(t, dt) for t, dt in b1[4])
+        require(expected_frames >= 2, "dt_write must give at least two frames")
+        d1 = run_driver(*b1[:3], restart=False)
+        d2 = run_driver(*b1[:3], restart=True)
+        b2 = bare()
+        require(b2[2] == b1[2] and b2[1] == b1[1], "the second bare run differs from the first")
+        bare_t = state_tensors(b1[0])
+        require(all(torch.equal(t, bare_t[k]) for k, t in state_tensors(b2[0]).items()),
+                "the second bare run's state differs from the first")
+        sim.close()
+    med = {name: statistics.median(ms[1:]) for name, ms in
+           (("bare 1", b1[3]), ("driver 1", d1), ("driver 2", d2), ("bare 2", b2[3]))}
+    log("  ms/step (CUDA events, median of steps 2-10), in turns: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+    log(f"  driver / bare: {(med['driver 1'] + med['driver 2']) / (med['bare 1'] + med['bare 2']):.4f}; "
+        f"all steps: bare 1 {[round(v, 3) for v in b1[3]]}, driver 1 {[round(v, 3) for v in d1]}")
+    log(f"  ms per VTK frame (host wall: one copy of the 8 planes, the file): "
+        f"{[round(v, 1) for v in frame_ms]}, median {statistics.median(frame_ms):.1f}")
+
+
+def driver_cli_phase(device) -> None:
+    """(b) ``driver.main`` on stationary_drop(n=256), f32, a few steps, VTK,
+    under ``--profile``: the monitor has a row per step and one more, and
+    the trace holds the pressure solve's range."""
+    from fluidsolver_tpu_torch import driver
+    from fluidsolver_tpu_torch.io.monitor_parse import read_monitor_file
+    from fluidsolver_tpu_torch.solvers import twophase
+    from fluidsolver_tpu_torch.utils.profiling import TRACE_FILE
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        sim = driver.main(["stationary_drop", "--param", "n=256", "--t-end", "0.005", "--writer", "vtk",
+                           "--output", out, "--profile", os.path.join(out, "trace"), "--log-every", "1"])
+        wall = time.perf_counter() - t0
+        rows = read_monitor_file(os.path.join(out, "monitor.log"))
+        trace = Path(out, "trace", TRACE_FILE)
+        size = trace.stat().st_size
+        has_range = twophase.PRESSURE_RANGE in trace.read_text()
+        frames = sorted(f for f in os.listdir(out) if f.endswith(".vtk"))
+    log(f"  main: {sim.n_steps} steps on {sim.device} ({sim.dtype}) in {wall:.1f} s with the profiler; "
+        f"{len(rows['time'])} monitor rows, {len(frames)} frames, trace {size / 2**20:.1f} MiB")
+    require(sim.device.type == "cuda" and sim.dtype == torch.float32, "main must run on the card in f32")
+    require(sim.n_steps >= 2 and len(rows["time"]) == sim.n_steps + 1, "the monitor needs n_steps + 1 rows")
+    require(all(np.isfinite(v).all() for v in rows.values()), "non-finite monitor values")
+    require(has_range, f"the trace has no {twophase.PRESSURE_RANGE} range")
+
+
+def driver_kinematic_phase(device) -> None:
+    """(c) ``Simulation`` on vof_tgv(n=1024), f64, 20 kinematic steps: the
+    reference's Taylor-Green invariants, one elvira and one overlap launch a
+    step and no other kernel, one host sync a step; the bare step queued
+    behind a device sleep returns with the stream busy (no host read)."""
+    from fluidsolver_tpu_torch import driver
+    from fluidsolver_tpu_torch.cases import get_case
+    from fluidsolver_tpu_torch.core import sync
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    n_steps = 20
+    case = get_case("vof_tgv", n=1024)
+    sim = driver.Simulation(case, dtype=torch.float64, device=device, save_output=False)
+    vf = sim.state.vf
+    init = torch.sum(vf)
+    stats, marks = [], [sync.count]
+    events = [event()]
+
+    def stash(state):
+        marks.append(sync.count)
+        events.append(event())
+        vf = state.vf
+        stats.append(torch.stack([state.vof_vol_error, vf.min(), vf.max(), torch.sum(vf)]))
+
+    _kernels.launches.clear()
+    sim.run(max_steps=n_steps, callback=stash)
+    launches = dict(_kernels.launches)
+    ms = step_ms(events)
+    stats = torch.stack(stats).cpu().numpy()
+    dx, dy = case.grid.dx, case.grid.dy
+    mass = np.abs(stats[:, 3] - float(init)) * dx * dy
+    log(f"  {sim.n_steps} steps to t = {sim.observe()['time']:.6f}: launches {launches}; host syncs per step "
+        f"{np.diff(marks).tolist()}")
+    log(f"  ms/step (CUDA events, median of steps 2-{n_steps}): {statistics.median(ms[1:]):.4f}; "
+        f"all steps: {[round(v, 3) for v in ms]}")
+    log(f"  max vof_vol_error {stats[:, 0].max():.3e}; vf in [{stats[:, 1].min():.3e}, 1 + "
+        f"{stats[:, 2].max() - 1:.3e}]; max |mass drift| {mass.max():.3e}")
+    require(sim.n_steps == n_steps, f"{sim.n_steps} kinematic steps")
+    require(launches == {"elvira": n_steps, "overlap": n_steps},
+            "the kinematic step must launch elvira and overlap once a step and no other kernel")
+    require(np.diff(marks).tolist() == [1] * n_steps, "the driver must make one host sync a kinematic step")
+    require(stats[:, 0].max() < 1e-12, "a step's volume error is not below 1e-12")
+    require(np.abs(stats[:, 1]).max() <= 1e-8 and np.abs(stats[:, 2] - 1.0).max() <= 1e-8,
+            "vf left [0, 1] by more than 1e-8")
+    require(mass.max() <= 1e-10, "the liquid volume drifted by more than 1e-10")
+
+    step = sim.step
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    step(sim.state, case.t_end)
+    pending = not torch.cuda.current_stream(device).query()
+    torch.cuda.synchronize()
+    log(f"  the kinematic step queued behind a device sleep: stream still busy on return: {pending}")
+    require(pending, "the kinematic step drained the stream (a host read)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2406,6 +2707,10 @@ def main(argv=None) -> int:
         phase = "4c pressure solvers cross-check"
         log("phase 4c: lid_driven(64) f64 tol 1e-11, 2 steps, every pressure method and solver, GPU vs CPU")
         solver_cross_check_phase(device)
+        phase = "4d driver cross-check"
+        log("phase 4d: the driver, two_phase_channel(16) f64 tol 1e-11 3 steps and vof_tgv(64) f64 10 "
+            "kinematic steps, GPU vs CPU")
+        driver_cross_check_phase(device)
 
         phase = "5 full size"
         log("phase 5: lid_driven(1024) f32, 20 steps on the card")
@@ -2417,6 +2722,16 @@ def main(argv=None) -> int:
         log('phase 7: the bench configuration on PCG + "mg", 1024^2 f32, 10 steps on the card')
         launches["rb_sweep"] = mg_bench_phase(
             device, g_bench, dataclasses.replace(cfg_bench, pressure_solver="mg"), vf_bench)["rb_sweep"]
+        phase = "8a driver, two_phase_channel(448)"
+        log("phase 8a: the driver on two_phase_channel(ny=448), 2240 x 448 f32, 10 steps, VTK, "
+            "in turns with the bare steps")
+        driver_channel_phase(device)
+        phase = "8b CLI"
+        log("phase 8b: driver.main on stationary_drop(n=256) f32 with --profile")
+        driver_cli_phase(device)
+        phase = "8c driver, vof_tgv(1024)"
+        log("phase 8c: the driver on vof_tgv(n=1024) f64, 20 kinematic steps")
+        driver_kinematic_phase(device)
     except Exception as exc:  # report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         import traceback

@@ -4,8 +4,10 @@
 Each case function returns a ``Case`` bundling grid, config and initial
 condition; ``make_state(dtype, device)`` builds the initial state (a
 ``FlowState``, or a ``TwoPhaseState`` for a two-phase case) and
-``make_step(dtype, device)`` the step function. Not ported: the immersed-
-boundary cases and ``vof_tgv`` (the kinematic VOF step).
+``make_step(dtype, device)`` the step function: the case's own
+``step_builder`` where it has one (``vof_tgv``, the kinematic VOF step),
+else the incompressible or two-phase step. Not ported: the immersed-
+boundary cases.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ class Case:
     u0: Optional[Callable] = None   # u0(x, y) on numpy coordinate arrays
     v0: Optional[Callable] = None
     two_phase: bool = False
+    # custom step factory (grid, cfg, dtype, device) -> step(state, t_end);
+    # used by kinematic cases (VOF-only advection with a prescribed
+    # velocity, examples/VOF.cpp) that bypass the momentum/pressure solvers
+    step_builder: Optional[Callable] = None
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def make_state(self, dtype: torch.dtype, device):
@@ -63,6 +69,8 @@ class Case:
         return flow
 
     def make_step(self, dtype: torch.dtype, device) -> Callable:
+        if self.step_builder is not None:
+            return self.step_builder(self.grid, self.cfg, dtype, device)
         if self.two_phase:
             return twophase.make_step(self.grid, self.cfg, dtype, device)
         return incomp.make_step(self.grid, self.cfg, dtype, device)
@@ -184,6 +192,50 @@ def two_phase_channel(ny: int = 128) -> Case:
     )
     return Case("two_phase_channel", g, cfg, t_end=2.0, dt_write=1e-2,
                 vf0=vf0, two_phase=True, meta=meta)
+
+
+@register("vof_tgv")
+def vof_tgv(n: int = 256, visc: float = 1e-3, rho: float = 0.9) -> Case:
+    """Kinematic VOF demo: four circles advected through the analytic
+    decaying Taylor-Green field, velocity re-prescribed each step; no
+    momentum/pressure solve (examples/VOF.cpp:40-120)."""
+    g = make_grid(0.0, 2 * math.pi, n, 0.0, 2 * math.pi, n)
+    per = bc.Periodic()
+    cfg = SolverConfig(
+        rho_gas=rho, rho_liquid=rho, visc_gas=visc, visc_liquid=visc,
+        cfl_max=0.5, dt_max=1e-2,
+        bcs=bc.FlowBCs(per, per, per, per),
+    )
+
+    centers = [
+        (0.75 * math.pi, 0.5 * math.pi), (1.75 * math.pi, 0.5 * math.pi),
+        (0.75 * math.pi, 1.5 * math.pi), (1.75 * math.pi, 1.5 * math.pi),
+    ]
+
+    def vf0(x, y):
+        inside = False
+        for cx, cy in centers:
+            inside = inside | ((x - cx) ** 2 + (y - cy) ** 2 <= 0.25**2)
+        return inside
+
+    def step_builder(grid, cfg, dtype, device):
+        # the separable field's two products, formed once on the device from
+        # the 1D coordinates; a step scales them by exp(-2 visc/rho t),
+        # computed from the time tensor without a host read
+        def coord(a):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+
+        sin_cos = torch.outer(coord(np.sin(grid.x)), coord(np.cos(grid.ym)))
+        cos_sin = -torch.outer(coord(np.cos(grid.xm)), coord(np.sin(grid.y)))
+
+        def velocity(t):
+            F = torch.exp(-2.0 * visc / rho * t)
+            return sin_cos * F, cos_sin * F
+
+        return twophase.make_kinematic_step(grid, cfg, velocity, dtype, device)
+
+    return Case("vof_tgv", g, cfg, t_end=30.0, dt_write=5e-2,
+                vf0=vf0, two_phase=True, step_builder=step_builder)
 
 
 @register("stationary_drop")

@@ -23,9 +23,13 @@ The step runs the reference's fused composition (its ``FS_PALLAS_CG`` and
 ``poisson/cg.py``) and the fused momentum stage (kernel 8,
 ``ops/cuda_momentum.py``).
 
+``make_kinematic_step`` is the VOF stage alone under a prescribed
+velocity (ELVIRA, advection, interface length; no momentum, no pressure).
+
 Host reads per step: ``dt > 0`` and each solver iteration's exit test
-(``core.sync``); the VOF stage adds none. The VOF stage and the pressure
-solves run inside the profiler ranges ``VOF_RANGE`` and ``PRESSURE_RANGE``.
+(``core.sync``); the VOF stage adds none, so the kinematic step has none.
+The VOF stage and the pressure solves run inside the profiler ranges
+``VOF_RANGE`` and ``PRESSURE_RANGE``.
 """
 
 from __future__ import annotations
@@ -249,5 +253,42 @@ def make_fixed_runner(grid: Grid, cfg: SolverConfig, n_steps: int, dtype: torch.
     return run_n
 
 
-def make_kinematic_step(*args, **kwargs):
-    raise ValueError("the kinematic VOF step (make_kinematic_step, vof_tgv) is not ported")
+def make_kinematic_step(grid: Grid, cfg: SolverConfig, velocity: Callable, dtype: torch.dtype,
+                        device) -> Callable:
+    """VOF-only kinematic step for states of ``dtype`` on ``device``: the
+    velocity is prescribed each step and only the interface is evolved
+    (reconstruct -> advect); no momentum and no pressure solve. The
+    reference's examples/VOF.cpp:80-120 and its kinematic tests
+    (test/{ConstantVelocityVOF,LinearVelocityVOF,TaylorGreenVortexVOF}.cpp)
+    share this loop shape.
+
+    ``velocity(t) -> (U, V)``: the ghosted staggered fields at the step's
+    0-d time tensor ``t``, on its device. The step makes no host read."""
+    device = torch.device(device)
+
+    def step(state: TwoPhaseState, t_end: float) -> TwoPhaseState:
+        fs = state.flow
+        if fs.U.dtype != dtype or fs.U.device != device:
+            raise ValueError(f"step built for {dtype} on {device}, state is "
+                             f"{fs.U.dtype} on {fs.U.device}")
+        U, V = velocity(fs.t)
+        U = U.to(fs.U.dtype)
+        V = V.to(fs.V.dtype)
+        dt = mom.adjust_dt(U, V, fs.rho_u, fs.rho_v, fs.visc, grid.dx, grid.dy, cfg.rho_gas,
+                           cfg.rho_liquid, cfg.sigma, cfg.cfl_max, cfg.dt_max)
+        dt = clamp_dt_to_end(dt, fs.t, t_end)
+
+        vf_old = state.vf
+        with record_function(VOF_RANGE):
+            rec = plic.elvira(vf_old, grid.dx, grid.dy)
+            vf, vol_err = adv.advect(vf_old, rec, U, V, stencil.interp_u_center(U),
+                                     stencil.interp_v_center(V), grid, dt,
+                                     max_active=cfg.vof_max_active)
+            vol_err = torch.where(rec.overflow, torch.full_like(vol_err, float("inf")), vol_err)
+            iface_len = plic.interface_length(rec, grid.dx, grid.dy)
+
+        fs = dataclasses.replace(fs, U=U, V=V, U_old=fs.U, V_old=fs.V, t=fs.t + dt, dt=dt)
+        return dataclasses.replace(state, flow=fs, vf=vf, vf_old=vf_old,
+                                   interface_length=iface_len, vof_vol_error=vol_err)
+
+    return step

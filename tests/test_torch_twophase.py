@@ -120,10 +120,6 @@ def test_unsupported_entry_points_raise():
     case = get_case("stationary_drop", n=16)
     with pytest.raises(ValueError):
         twophase.make_step(case.grid, case.cfg, torch.float64, "cpu", mesh=object())
-    with pytest.raises(ValueError):
-        twophase.make_kinematic_step(case.grid, case.cfg, None)
-    with pytest.raises(KeyError):
-        get_case("vof_tgv")
 
 
 @pytest.mark.parametrize("name,kwargs", [
