@@ -57,7 +57,10 @@ result line):
      (lane, neighbour) pairs (those above the cutoff), and timed on the
      bench drop's swirl lanes and on the lanes of the bench step's first two
      advections beside its floors (an empty launch of the same grid, the
-     gathers and cutoff test alone, the busiest lane alone); with --parent
+     gathers and cutoff test alone, the busiest lane alone); overlap also
+     on quads (n0 = 4, the no_correction start polygons of the same
+     backtrace) on the bench drop and the 25-drop box, f64 and f32, and
+     timed at the bench drop; with --parent
      DIR, the parent's curvature (f32 and f64, every field above) and
      overlap (both outputs on every lane of every case above, f32 and f64)
      bitwise equal to this one's and both timed in turns, overlap on the
@@ -100,6 +103,11 @@ result line):
      below the tolerance; final U, V, p, vf within 1e-9); vof_tgv(n=64), 10
      kinematic steps (vf within 1e-9, every step's volume error below
      1e-12);
+  4e. GPU against CPU, f64, tol 1e-11, 3 steps each, held like 4d:
+     two_phase_channel(ny=16) with the tangent force, the regression
+     curvature, the dense advection, no_correction and the staggered
+     backtrace, and at ny=32 with the convolved curvature;
+     expanding_bubble(n=32); the four IB channels and growing_ib at ny=16;
   5. lid_driven(n=1024), f32, 20 steps: ms/step, PCG iterations, max |div|,
      host syncs per step, launch counts (the V-cycle and the PCG kernels),
      and the kernels seen by torch.profiler over make_step plus one step;
@@ -127,9 +135,28 @@ result line):
      monitor rows, the twophase.pressure range in the trace; (c) vof_tgv(
      n=1024), f64, 20 kinematic steps: the Taylor-Green invariants, one
      elvira and one overlap launch a step and no other kernel, one host sync
-     a step, no host read in the step, ms/step.
+     a step, no host read in the step, ms/step;
+  9. the bench configuration of phase 6 with each of the options of 4e, 5
+     steps (the dense advection 2): phase 6's report and exact launches
+     (no curvature launch under regression or convolved, no overlap
+     launch on the dense path, one quad overlap launch a step under
+     no_correction), the peak device memory; the dense advection against
+     the sparse one on the f64 inputs of the bench's steps 1 and 2
+     (max |dvf| <= 1e-12), with its peak memory;
+  10. expanding_bubble(n=1024, m_dot=1), f32, 10 steps: ms/step,
+     launches, vf bounds, the gas area's growth above 0.3 of 2 pi r m_dot
+     t;
+  11. the IB cases through the driver at about the bench's cell count
+     (diffuse, sharp quadratic, Luchini and Luchini implicit channels at
+     2240 x 448, growing_ib at 1728 x 576), f32, 10 steps each: the
+     set-up time, ms/step, p_iter, host syncs (the bare step's + 1), one
+     hierarchy at make_step and none a step, no NaN, |U| deep in the solid
+     below 0.15, max |div| below 1e-3 (growing_ib: less its source and
+     the singular solve's constant, below 1e-3 of the source's scale); the
+     sharp channel with the linear weights is reported, not held.
 The second-to-last line is a JSON object with one entry per kernel (the
-launches from phase 6, rb_sweep's from phase 7); the last line is
+launches from phase 6, rb_sweep's from phase 7; overlap's quad variant
+under "n0_4", its launches from phase 9); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -994,7 +1021,7 @@ def overlap_flops(args, n_active: int) -> int:
         vx, vy, n = advect.clip_halfplane(vx, vy, n, a, b, c)
         flops += int(torch.where(need, 4 * nn + 8 * (n - inside), 0).sum())
     flops += int(torch.where(need, 4 * n.clamp(max=advect.K) + 1, 0).sum())
-    return flops + n_active * (4 * 8 + 1 + 9)
+    return flops + n_active * (4 * slots_x.shape[0] + 1 + 9)
 
 
 def check_elvira(errors: Errors, vf, dx: float, dy: float, main: bool, tag: str):
@@ -1519,9 +1546,13 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
             lanes = advect.prepare_lanes(vf, U, V, Ui, Vi, g, dt, m)
             args = (lanes.slots_x, lanes.slots_y, vf, rt, lanes.iig, lanes.jjg, dx, dy)
             check_overlap(errors, args, main, tag)
+            # the quads of the no_correction variant from the same backtrace
+            quads = advect.prepare_lanes(vf, U, V, Ui, Vi, g, dt, m, no_correction=True)
+            qargs = (quads.slots_x, quads.slots_y, vf, rt, quads.iig, quads.jjg, dx, dy)
+            check_overlap(errors, qargs, main, tag + " quads")
             n_active = int(lanes.n_active)
             log(f"  {tag}: {n_mixed} mixed cells, {n_active} active of {m} lanes: "
-                f"elvira ({n_off} near-tie cells), curvature and overlap agree")
+                f"elvira ({n_off} near-tie cells), curvature and overlap (octagons and quads) agree")
 
             if main and dtype == torch.float32:
                 nm = vf.numel()
@@ -1547,6 +1578,12 @@ def vof_kernel_phase(device, errors: Errors, vf_bench: np.ndarray, g_bench) -> d
                     # neighbourhoods in; the clip loop's operations
                     *bound((18 * s + 16) * n_active + (4 * s + 1) * neighbourhood_cells(lane_cells),
                            overlap_flops(args, n_active), dtype))
+                # the quads: 8 slot values a lane
+                times["overlap_n0_4"] = (
+                    time_ms(lambda: cuda_advect.overlap_cuda(*qargs), 50, kernel=True),
+                    time_ms(lambda: cuda_advect.overlap_twin(*qargs), 3),
+                    *bound((10 * s + 16) * n_active + (4 * s + 1) * neighbourhood_cells(lane_cells),
+                           overlap_flops(qargs, n_active), dtype))
 
     # a lane budget below the active set: the advection reports inf
     vf = torch.as_tensor(vf_odd, dtype=torch.float32, device=device)
@@ -2297,7 +2334,8 @@ def drive_bench(device, g, cfg, vf0, n_steps: int):
     drift = (float(vf.double().sum()) - vol0) / vol0
     vf_min, vf_max = float(vf.min()), float(vf.max())
     log(f"  launches in {n_steps} steps: {launches}")
-    log(f"  ms/step (CUDA events; median of steps 4-{n_steps}): {statistics.median(ms[3:]):.4f}; "
+    first = 4 if n_steps >= 4 else 1
+    log(f"  ms/step (CUDA events; median of steps {first}-{n_steps}): {statistics.median(ms[first - 1:]):.4f}; "
         f"all steps: {[round(v, 3) for v in ms]}")
     log(f"  p_iter per step: {iters} (sum {sum(iters)})")
     log(f"  host syncs per step: {syncs}")
@@ -2626,6 +2664,340 @@ def driver_kinematic_phase(device) -> None:
     require(pending, "the kinematic step drained the stream (a host read)")
 
 
+# ---- phase 4e ----------------------------------------------------------------
+# the two-phase options of phase 9 on two_phase_channel(ny=16)
+CHANNEL_OPTIONS = (("tangent_force", dict(surface_tension_method="tangent_force")),
+                   ("regression", dict(curvature_method="regression")),
+                   ("convolved", dict(curvature_method="convolved")),
+                   ("dense", dict(vof_max_active=0)),
+                   ("no_correction", dict(vof_no_correction=True)),
+                   ("staggered", dict(vof_staggered_backtrace=True)))
+# the immersed-boundary cases: (label, case, its arguments but the size)
+IB_CASES = (("diffuse", "diffuse_ib_channel", {}),
+            ("sharp quadratic", "sharp_ib_channel", dict(scheme="quadratic")),
+            ("luchini", "luchini_ib_channel", {}),
+            ("luchini implicit", "luchini_ib_channel", dict(implicit=True)),
+            ("growing_ib", "growing_ib", {}))
+
+
+def cross_check_case(device, case, n_steps: int, what: str) -> None:
+    """``case`` through the driver on the card and on the CPU, f64, tol
+    1e-11 (1e-9 on the intermediate subiterations): every observed column
+    within 1e-9 of its scale and iter(p) within 1 a step (check_rows), the
+    final U, V, p (and vf) within 1e-9."""
+    from fluidsolver_tpu_torch import driver
+
+    case.cfg = dataclasses.replace(case.cfg, pressure_tol=1e-11, pressure_tol_intermediate=1e-9)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        sim = driver.Simulation(case, dtype=torch.float64, device=dev, save_output=False)
+        rows = driver_rows(sim, max_steps=n_steps)
+        fl = sim.state.flow if case.two_phase else sim.state
+        final = {k: getattr(fl, k).cpu().numpy() for k in ("U", "V", "p")}
+        if case.two_phase:
+            final["vf"] = sim.state.vf.cpu().numpy()
+        runs.append((rows, final, sim.n_steps))
+    (g_rows, g, g_n), (c_rows, c, c_n) = runs
+    require(g_n == c_n == n_steps, f"{what}: {g_n}, {c_n} steps")
+    log(f"  {what}: iter(p) per step gpu {[int(r['iter(p)']) for r in g_rows[1:]]}, "
+        f"cpu {[int(r['iter(p)']) for r in c_rows[1:]]}")
+    check_rows(g_rows, c_rows, 1e-9, case.grid.dx, case.cfg.pressure_tol)
+    rels = {k: float(np.abs(g[k] - c[k]).max() / (np.abs(c[k]).max() or 1.0)) for k in g}
+    log(f"  {what}: final max|gpu - cpu| / max|cpu|: " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()))
+    require(all(v <= 1e-9 for v in rels.values()), f"{what} f64: a final field differs by more than 1e-9")
+
+
+def options_cross_check_phase(device) -> None:
+    """Phase 4e: GPU against CPU in f64 for two_phase_channel(ny=16) with
+    each of CHANNEL_OPTIONS, expanding_bubble(n=32), the four IB channels
+    and growing_ib at ny=16, 3 steps each. The convolved curvature runs at
+    ny=32: at ny=16 the drop's radius is 1.8 cells, so the bilinear sample
+    at its interface reaches the drop's centre, where the smoothed
+    gradient vanishes and |grad|^3 crosses the estimator's 1e-8 cut; there
+    one rounding decides the sample (the JAX package's jitted and
+    op-by-op runs differ by 12% of the largest curvature at ny=16, by
+    9e-16 at ny=32)."""
+    from fluidsolver_tpu_torch.cases import get_case
+
+    for label, change in CHANNEL_OPTIONS:
+        case = get_case("two_phase_channel", ny=32 if label == "convolved" else 16)
+        case.cfg = dataclasses.replace(case.cfg, **change)
+        cross_check_case(device, case, 3, f"two_phase_channel({case.grid.ny}) {label}")
+    cross_check_case(device, get_case("expanding_bubble", n=32), 3, "expanding_bubble(32)")
+    for label, name, kw in IB_CASES:
+        cross_check_case(device, get_case(name, ny=16, **kw), 3, f"{name}(16) {label}")
+
+
+# ---- phase 9 -------------------------------------------------------------------
+# (label, config change, steps)
+BENCH_OPTIONS = tuple((label, change, 2 if label == "dense" else 5) for label, change in CHANNEL_OPTIONS)
+
+
+def expected_bench_launches(n_steps: int, iters: list, n_above: int, n_subiter: int) -> dict:
+    """The launches of the BoxMG bench step (see bench_phase)."""
+    solves = n_steps * n_subiter
+    cycles = sum(iters) + solves
+    return {"elvira": n_steps, "curvature": n_steps, "overlap": n_steps, "overlap_n0_4": 0,
+            "fused_rap": n_above * n_steps, "tail_setup": n_steps, "tail_cycle": cycles,
+            "fused_smooth": 2 * n_above * cycles, "step_ab": sum(iters), "step_c": sum(iters) + solves,
+            "step_init": solves, "fused_momentum": solves, "rb_sweep": 0}
+
+
+def record_advections(device, g, cfg, vf0, dtype, n_steps: int) -> list:
+    """The arguments of the advection in each of the first ``n_steps`` steps
+    of ``cfg`` from ``vf0``, recorded at ``vof.advect.advect``."""
+    from fluidsolver_tpu_torch.solvers import twophase
+    from fluidsolver_tpu_torch.vof import advect
+
+    calls = []
+    original = advect.advect
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return original(*args, **kw)
+
+    advect.advect = recording
+    try:
+        state = twophase.init_two_phase_state(g, cfg, vf0, dtype, device)
+        step = twophase.make_step(g, cfg, dtype, device)
+        for _ in range(n_steps):
+            state = step(state, 1e9)
+    finally:
+        advect.advect = original
+    require(len(calls) == n_steps, f"{len(calls)} advections in {n_steps} steps")
+    return calls
+
+
+def dense_oracle_check(device, g, cfg, vf0) -> None:
+    """The dense advection against the sparse one (kernel #12) on the
+    advection inputs of the bench configuration's steps 1 and 2, f64 at
+    1024^2: max |vf_dense - vf_sparse| <= 1e-12 (the level of
+    tests/test_vof_advect.py), with the dense path's peak memory."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+    from fluidsolver_tpu_torch.vof import advect
+
+    for k, (args, kw) in enumerate(record_advections(device, g, cfg, vf0, torch.float64, 2)):
+        _kernels.launches.clear()
+        vf_s, err_s = advect.advect(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        vf_d, err_d = advect.advect(*args, **{**kw, "max_active": 0})
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device) - base
+        launches = dict(_kernels.launches)
+        diff = float((vf_d - vf_s).abs().max())
+        moved = float((vf_s - args[0]).abs().max())
+        log(f"  step {k + 1}'s advection, f64 1024^2: max|vf dense - vf sparse| = {diff:.3e} (vf moved by up to "
+            f"{moved:.3e}); volume errors dense {float(err_d):.3e}, sparse {float(err_s):.3e}; launches "
+            f"{launches}; the dense path's peak memory above its inputs {peak / 2**30:.2f} GiB")
+        require(diff <= 1e-12, f"dense against sparse advection at step {k + 1}: {diff:.3e} > 1e-12")
+        require(launches == {"overlap": 1}, "the sparse advection must launch overlap once, the dense one nothing")
+
+
+def bench_options_phase(device, g, cfg, vf0) -> int:
+    """Phase 9: BENCH_OPTIONS on the bench configuration (1024^2, f32,
+    BoxMG, refresh "step"): drive_bench's report and the exact launches;
+    no curvature launch under regression or convolved, no overlap launch on
+    the dense path (with its peak memory), one quad overlap launch a step
+    under no_correction; then dense_oracle_check. Returns the quad
+    launches."""
+    n_above = above_tail_levels(g.shape_center)
+    quad = 0
+    for label, change, n_steps in BENCH_OPTIONS:
+        log(f"  {label} ({change}), {n_steps} steps:")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        _, _, launches, iters = drive_bench(device, g, dataclasses.replace(cfg, **change), vf0, n_steps)
+        log(f"  {label}: peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+        expected = expected_bench_launches(n_steps, iters, n_above, cfg.num_subiter)
+        if label in ("regression", "convolved"):
+            expected["curvature"] = 0
+        if label == "dense":
+            expected["overlap"] = 0
+        if label == "no_correction":
+            expected["overlap_n0_4"] = n_steps
+            quad = launches.get("overlap_n0_4", 0)
+        require(all(launches.get(k, 0) == v for k, v in expected.items()),
+                f"{label}: the launch counts differ from {expected}")
+    dense_oracle_check(device, g, cfg, vf0)
+    return quad
+
+
+# ---- phase 10 ------------------------------------------------------------------
+def drive_case(device, case, n_steps: int, dtype=torch.float32):
+    """``n_steps`` bare steps of ``case`` from its initial state, each timed
+    by CUDA events, with the launch counts set to 0 just before the first
+    step and read just after the last. Returns (initial state, state, ms,
+    p_iter, host syncs, launches) per step."""
+    from fluidsolver_tpu_torch.core import sync
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    state = state0 = case.make_state(dtype, device)
+    step = case.make_step(dtype, device)
+    torch.cuda.synchronize()
+    _kernels.launches.clear()
+    ms, iters, syncs = [], [], []
+    for _ in range(n_steps):
+        s0 = sync.count
+        start = event()
+        state = step(state, 1e9)
+        end = event()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        syncs.append(sync.count - s0)
+        iters.append(int((state.flow if case.two_phase else state).p_iter))
+    return state0, state, ms, iters, syncs, dict(_kernels.launches)
+
+
+def expanding_bubble_phase(device) -> None:
+    """Phase 10: expanding_bubble(n=1024, m_dot=1), f32, 10 steps: ms/step,
+    launches, vf bounds, and the gas area's growth above 0.3 of 2 pi r
+    m_dot t (tests/test_sources.py)."""
+    from fluidsolver_tpu_torch.cases import get_case
+
+    n_steps = 10
+    case = get_case("expanding_bubble", n=1024, m_dot=1.0)
+    g = case.grid
+    state0, state, ms, iters, syncs, launches = drive_case(device, case, n_steps)
+    gas0 = float((1.0 - state0.vf[1:-1, 1:-1].double()).sum()) * g.dx * g.dy
+    vf = state.vf[1:-1, 1:-1].double()
+    gas1 = float((1.0 - vf).sum()) * g.dx * g.dy
+    t = float(state.flow.t)
+    expected = 2.0 * math.pi * 0.15 * 1.0 * t
+    finite = all(bool(torch.isfinite(x).all()) for x in (state.flow.U, state.flow.V, state.flow.p, state.vf))
+    log(f"  launches in {n_steps} steps: {launches}")
+    log(f"  ms/step (CUDA events; median of steps 2-{n_steps}): {statistics.median(ms[1:]):.4f}; all steps: "
+        f"{[round(v, 3) for v in ms]}")
+    log(f"  p_iter per step: {iters} (sum {sum(iters)}); host syncs per step: {syncs}")
+    log(f"  t = {t:.6f}: gas area {gas0:.6e} -> {gas1:.6e}, growth {gas1 - gas0:.4e} against 2 pi r m_dot t = "
+        f"{expected:.4e} (ratio {(gas1 - gas0) / expected:.4f}); vf in [{float(vf.min()):.3e}, "
+        f"{float(vf.max()):.9f}]")
+    require(finite, "non-finite U, V, p or vf")
+    require(gas1 - gas0 > 0.3 * expected, "the bubble grew by less than 0.3 of 2 pi r m_dot t")
+    require(float(vf.min()) > -1e-5 and float(vf.max()) < 1.0 + 1e-5, "vf left [-1e-5, 1 + 1e-5]")
+    require(launches.get("elvira") == n_steps and launches.get("overlap") == n_steps
+            and launches.get("curvature") == n_steps and launches.get("fused_momentum") == n_steps * 5,
+            "one elvira, overlap and curvature a step and one fused_momentum a subiteration")
+
+
+# ---- phase 11 ------------------------------------------------------------------
+def ib_case_phase(device, label: str, name: str, kw: dict, ny: int, checked: bool = True) -> None:
+    """One IB case through the driver, f32, 10 steps: the field set-up time
+    (make_step, with the hierarchy), ms/step, p_iter, host syncs a step (the
+    bare step's + 1), the launches of kernels 1-7 (fused_rap and tail_setup
+    once at make_step, none a step), and, if ``checked``, no NaN, |U| deep
+    in the solid below 0.15 and max|div| below 1e-3 (tests/test_ib.py); the
+    speed through the gap over the cylinder is logged."""
+    from fluidsolver_tpu_torch import driver
+    from fluidsolver_tpu_torch.cases import get_case
+    from fluidsolver_tpu_torch.core import sync
+    from fluidsolver_tpu_torch.ops import stencil
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    n_steps = 10
+    case = get_case(name, ny=ny, **kw)
+    g = case.grid
+    make_step = case.make_step
+    setup = {}
+
+    def timed_make_step(dtype, dev):
+        torch.cuda.synchronize()
+        _kernels.launches.clear()
+        t0 = time.perf_counter()
+        step = make_step(dtype, dev)
+        torch.cuda.synchronize()
+        setup.update(s=time.perf_counter() - t0, launches=dict(_kernels.launches))
+        return step
+
+    case.make_step = timed_make_step
+    sim = driver.Simulation(case, dtype=torch.float32, device=device, save_output=False)
+    marks, events, iters = [sync.count], [event()], []
+
+    def stash(state):
+        marks.append(sync.count)
+        events.append(event())
+        iters.append(int(sim.observe()["iter(p)"]))
+
+    bare = []
+    step = sim.step
+
+    def counting(state, t_end):
+        s0 = sync.count
+        out = step(state, t_end)
+        bare.append(sync.count - s0)
+        return out
+
+    sim.step = counting
+    _kernels.launches.clear()
+    sim.run(max_steps=n_steps, callback=stash)
+    launches = dict(_kernels.launches)
+    ms = step_ms(events)
+    state = sim.state
+    U = state.U.float().cpu().numpy()
+    div = stencil.divergence(state.U, state.V, g.dx, g.dy)[1:-1, 1:-1]
+    wall, div_scale, offset = case.meta.get("wall"), 1.0, 0.0
+    if wall is None:
+        # growing_ib: the circle at its radius now. The projection leaves
+        # div = ib (3/r) drdt, the source of the last step's start, less a
+        # constant: the pressure problem is singular (no pin), so the
+        # solve removes the mean, which no outflow balances. What is left
+        # is held against the source's scale (3 drdt / r) as the channels'
+        # divergence is held against 1
+        r0, drdt = case.meta["r0"], case.meta["drdt"]
+        wall = dataclasses.make_dataclass("W", ["x", "y", "r"])(
+            case.meta["cx"], case.meta["cy"], r0 + drdt * float(state.t))
+        t_old = state.t - state.dt
+        ib = case.ib_builder(g, torch.float32, device)(dataclasses.replace(state, t=t_old)).ib
+        source = ib * (3.0 / (r0 + drdt * t_old)) * drdt
+        div = div - source[1:-1, 1:-1]
+        offset = float(div.double().mean())
+        div, div_scale = div - offset, float(source.abs().max())
+    Xu, Yu = np.meshgrid(g.x, g.ym, indexing="ij")
+    deep = (Xu - wall.x) ** 2 + (Yu - wall.y) ** 2 < (0.5 * wall.r) ** 2
+    u_deep = float(np.abs(U[deep]).max())
+    u_gap = float(np.abs(U[int((wall.x - g.x_min) / g.dx) + 1, :]).max())
+    nan = bool(np.isnan(U).any())
+    n_above = above_tail_levels(g.shape_center)
+    solves = n_steps * case.cfg.num_subiter
+    log(f"  {label} ({name}, ny={ny}, {g.nx} x {g.ny}): set-up (IB fields and hierarchy) {setup['s']:.3f} s, "
+        f"launches there {setup['launches']}")
+    log(f"    launches in {sim.n_steps} driver steps: {launches}")
+    log(f"    ms/step (CUDA events; median of steps 2-{sim.n_steps}): {statistics.median(ms[1:] or ms):.4f}; "
+        f"all steps: "
+        f"{[round(v, 3) for v in ms]}")
+    log(f"    p_iter per step {iters} (sum {sum(iters)}); host syncs per driver step {np.diff(marks).tolist()}, "
+        f"of the bare step {bare}")
+    log(f"    NaN in U: {nan}; max|U| deep in the solid {u_deep:.4e}; max|div| (growing_ib: less the source and "
+        f"its mean {offset:.4e}, over the source's scale {div_scale:.4f}) {float(div.abs().max()) / div_scale:.3e}; "
+        f"gap speed {u_gap:.4f}; t = {float(state.t):.6f}")
+    require(setup["launches"].get("tail_setup") == 1 and setup["launches"].get("fused_rap") == n_above,
+            f"{label}: make_step must build one hierarchy (tail_setup once, fused_rap {n_above} times)")
+    require(launches.get("fused_rap", 0) == 0 and launches.get("tail_setup", 0) == 0,
+            f"{label}: a step must not rebuild the hierarchy")
+    require(np.diff(marks).tolist() == [b + 1 for b in bare], f"{label}: a driver step must cost the bare step + 1")
+    if checked:
+        require(sim.n_steps == n_steps and launches.get("step_init") == solves
+                and launches.get("tail_cycle", 0) > 0 and launches.get("step_ab", 0) > 0
+                and launches.get("fused_smooth", 0) > 0,
+                f"{label}: {n_steps} steps, one step_init a solve, and the V-cycle and PCG kernels")
+        require(not nan, f"{label}: NaN in U")
+        require(u_deep < 0.15, f"{label}: |U| deep in the solid {u_deep:.3e} >= 0.15")
+        require(float(div.abs().max()) < 1e-3 * div_scale, f"{label}: max|div| >= 1e-3 of its scale")
+
+
+def ib_phase(device) -> None:
+    """Phase 11: the IB cases at the bench's cell count (the channels at
+    ny=448, 2240 x 448; growing_ib at ny=576, 1728 x 576), f32, 10 steps
+    each; the sharp channel also with the linear weights, reported and not
+    held (they diverge as beta -> 1; the driver stops at a NaN time). growing_ib's divergence is held less
+    its source and their constant difference (the singular solve's),
+    against the source's scale."""
+    for label, name, kw in IB_CASES:
+        ib_case_phase(device, label, name, kw, 576 if name == "growing_ib" else 448)
+    ib_case_phase(device, "sharp linear", "sharp_ib_channel", dict(scheme="linear"), 448, checked=False)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2640,6 +3012,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     phase = "1 device"
     errors = Errors()
     try:
@@ -2711,6 +3084,10 @@ def main(argv=None) -> int:
         log("phase 4d: the driver, two_phase_channel(16) f64 tol 1e-11 3 steps and vof_tgv(64) f64 10 "
             "kinematic steps, GPU vs CPU")
         driver_cross_check_phase(device)
+        phase = "4e options cross-check"
+        log("phase 4e: the two-phase options, expanding_bubble(32) and the IB cases at ny=16, f64 tol 1e-11, "
+            "3 steps each, GPU vs CPU")
+        options_cross_check_phase(device)
 
         phase = "5 full size"
         log("phase 5: lid_driven(1024) f32, 20 steps on the card")
@@ -2732,6 +3109,15 @@ def main(argv=None) -> int:
         phase = "8c driver, vof_tgv(1024)"
         log("phase 8c: the driver on vof_tgv(n=1024) f64, 20 kinematic steps")
         driver_kinematic_phase(device)
+        phase = "9 bench options"
+        log("phase 9: the two-phase options on the bench configuration, 1024^2 f32, BoxMG, refresh step")
+        quad_launches = bench_options_phase(device, g_bench, cfg_bench, vf_bench)
+        phase = "10 expanding bubble"
+        log("phase 10: expanding_bubble(n=1024, m_dot=1) f32, 10 steps")
+        expanding_bubble_phase(device)
+        phase = "11 immersed boundaries"
+        log("phase 11: the IB cases at the bench's cell count through the driver, f32, 10 steps each")
+        ib_phase(device)
     except Exception as exc:  # report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         import traceback
@@ -2744,6 +3130,12 @@ def main(argv=None) -> int:
         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": times[k][2], "bound_by": times[k][3],
         "library_ms": None,
     } for k in REPLACES]
+    # overlap's quad variant: its launches under vof_no_correction (phase 9)
+    # and its time on the bench drop's quads (phase 3b)
+    quad = times["overlap_n0_4"]
+    next(k for k in kernels if k["name"] == "overlap")["n0_4"] = {
+        "launches": quad_launches, "ms": quad[0], "plain_ms": quad[1], "bound_ms": quad[2], "bound_by": quad[3]}
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -6,8 +6,9 @@ condition; ``make_state(dtype, device)`` builds the initial state (a
 ``FlowState``, or a ``TwoPhaseState`` for a two-phase case) and
 ``make_step(dtype, device)`` the step function: the case's own
 ``step_builder`` where it has one (``vof_tgv``, the kinematic VOF step),
-else the incompressible or two-phase step. Not ported: the immersed-
-boundary cases.
+else the incompressible step (with the IB fields of ``ib_builder``) or the
+two-phase step. ``cases/sources.py`` adds the growing solid and the
+expanding bubble. Not ported: the DFG cases and the immersed interface.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 
 from fluidsolver_tpu_torch.core import bc
 from fluidsolver_tpu_torch.core.grid import Grid, make_grid
+from fluidsolver_tpu_torch.ib import diffuse, luchini, sharp
+from fluidsolver_tpu_torch.ib.geometry import Circle
 from fluidsolver_tpu_torch.solvers import incomp, twophase
 from fluidsolver_tpu_torch.solvers.config import SolverConfig
 from fluidsolver_tpu_torch.solvers.state import init_flow_state
@@ -39,6 +42,9 @@ class Case:
     u0: Optional[Callable] = None   # u0(x, y) on numpy coordinate arrays
     v0: Optional[Callable] = None
     two_phase: bool = False
+    # builds the IB fields of cfg.ib_mode: (grid, dtype, device) -> fields
+    # on the device (once per make_step)
+    ib_builder: Optional[Callable] = None
     # custom step factory (grid, cfg, dtype, device) -> step(state, t_end);
     # used by kinematic cases (VOF-only advection with a prescribed
     # velocity, examples/VOF.cpp) that bypass the momentum/pressure solvers
@@ -73,7 +79,8 @@ class Case:
             return self.step_builder(self.grid, self.cfg, dtype, device)
         if self.two_phase:
             return twophase.make_step(self.grid, self.cfg, dtype, device)
-        return incomp.make_step(self.grid, self.cfg, dtype, device)
+        ib = self.ib_builder(self.grid, dtype, device) if self.ib_builder is not None else None
+        return incomp.make_step(self.grid, self.cfg, dtype, device, ib=ib)
 
 
 _REGISTRY: Dict[str, Callable[..., Case]] = {}
@@ -155,6 +162,72 @@ def taylor_green(n: int = 128, visc: float = 0.1, rho: float = 0.9) -> Case:
         return -np.cos(x) * np.sin(y)
 
     return Case("taylor_green", g, cfg, t_end=5.0, dt_write=1e-2, u0=u0, v0=v0)
+
+
+# ---- immersed-boundary channels (examples/{DiffuseIB,SharpIB,IB-Luchini}.cpp) ----
+def _ib_channel_base(ny: int, ib_mode: str) -> tuple:
+    y_max = 1.0
+    x_max = 5.0
+    nx = int(ny * x_max / y_max)
+    g = make_grid(0.0, x_max, nx, 0.0, y_max, ny)
+
+    def inflow(y, t):
+        return 4.0 * 1.5 * y * (y_max - y) / y_max**2
+
+    cfg = SolverConfig(
+        rho_gas=1.0, rho_liquid=1.0, visc_gas=1e-3, visc_liquid=1e-3,
+        cfl_max=0.5, dt_max=1e-2, num_subiter=5,
+        pressure_tol=1e-6, pressure_max_iter=50,
+        bcs=bc.FlowBCs(
+            bc.Dirichlet(u=inflow, v=0.0), bc.Neumann(clipped=True),
+            bc.Dirichlet(), bc.Dirichlet(),
+        ),
+        outflow_correction=True,
+        ib_mode=ib_mode,
+    )
+    return g, cfg
+
+
+IB_WALL = Circle(1.0, 0.5, 0.15)
+
+
+@register("diffuse_ib_channel")
+def diffuse_ib_channel(ny: int = 128) -> Case:
+    """Channel with a circular obstacle, diffuse volume-penalty forcing
+    (examples/DiffuseIB.cpp: circle (1.0, 0.5, r=0.15))."""
+    g, cfg = _ib_channel_base(ny, "diffuse")
+
+    def build(grid, dtype, device):
+        return diffuse.solid_fractions(IB_WALL.contains, grid, dtype, device)
+
+    return Case("diffuse_ib_channel", g, cfg, t_end=5.0, dt_write=5e-2,
+                ib_builder=build, meta=dict(wall=IB_WALL))
+
+
+@register("sharp_ib_channel")
+def sharp_ib_channel(ny: int = 128, scheme: str = "linear") -> Case:
+    """Channel with a circular obstacle, sharp ghost-cell extrapolation
+    (examples/SharpIB.cpp)."""
+    g, cfg = _ib_channel_base(ny, "sharp")
+
+    def build(grid, dtype, device):
+        return sharp.build(IB_WALL, grid, dtype, device, scheme=scheme)
+
+    return Case("sharp_ib_channel", g, cfg, t_end=5.0, dt_write=5e-2,
+                ib_builder=build, meta=dict(wall=IB_WALL))
+
+
+@register("luchini_ib_channel")
+def luchini_ib_channel(ny: int = 128, implicit: bool = False) -> Case:
+    """Channel with a circular obstacle, Luchini second-order IB
+    (examples/IB-Luchini.cpp)."""
+    g, cfg = _ib_channel_base(ny, "luchini_implicit" if implicit else "luchini")
+
+    def build(grid, dtype, device):
+        return luchini.correction_fields(IB_WALL, grid, dtype, device)
+
+    return Case("luchini_ib_channel", g, cfg, t_end=5.0, dt_write=5e-2,
+                ib_builder=build, meta=dict(wall=IB_WALL))
 
 
 # ---- two-phase cases ----------------------------------------------------------

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel fluidsolver_tpu/vof/pallas_advect.py:157
 // (overlap_pallas, pallas_call at :220). Per lane the start polygon (the
-// flux-corrected octagon, 8 vertices) is clipped against each of the 9
+// flux-corrected octagon, 8 vertices, or under the no_correction variant
+// the plain backtraced quad, 4; fs_overlap and fs_overlap_quad, one
+// instantiation each) is clipped against each of the 9
 // neighbour cells -- the W, E, S, N edges, then the neighbour's PLIC liquid
 // half-plane -- and the areas of the neighbours whose fraction exceeds the
 // mixed-cell cutoff are summed; the start polygon's own area comes out too.
@@ -38,6 +40,10 @@
 // clip, so the buffers hold kSlots = 16 vertices like the plain version's
 // K; a polygon with more emissions keeps its first 16, as the plain version
 // does (the TPU kernel's 13 register slots assume one insertion per clip).
+// The quad runs the same chain in the same buffers: its slots 4-7 of the
+// start polygon are zeros that no clip reads as vertices (the live mask),
+// and a quad that crosses itself keeps its signed shoelace area, as the
+// plain version's does.
 // On an NVIDIA H100 80GB HBM3 (700 W), bench drop, f32
 // (tools/torch_vof_times.py): 0.0070 ms on the swirl lanes against the
 // one-thread-a-pair kernel's 0.0186 in turns, 0.0088 against 0.0170 on the
@@ -51,8 +57,8 @@
 namespace fs {
 namespace {
 
-constexpr int kSlots = 16;  // advect.K
-constexpr int kStart = 8;   // the octagon
+constexpr int kSlots = 16;     // advect.K
+constexpr int kOctagon = 8;    // the start polygon's slots (the quad fills 4)
 
 // how far a launch runs: the whole kernel, or a cut-short probe
 enum Stage { kEmpty = 0, kGather = 1, kFull = 2 };
@@ -139,7 +145,7 @@ __device__ __forceinline__ int clip(const typename Vec2<T>::type* in, int si,
   return __popc(emit);
 }
 
-template <typename T, int L, int kStage>
+template <typename T, int L, int kStage, int kStart>
 __global__ void __launch_bounds__(9 * L)
 overlap_kernel(const T* __restrict__ sx, const T* __restrict__ sy,
                const int64_t* __restrict__ li, const int64_t* __restrict__ lj,
@@ -151,7 +157,7 @@ overlap_kernel(const T* __restrict__ sx, const T* __restrict__ sy,
   // a listed pair's two polygon buffers, slot s of thread t at [s][t]
   // (slot kSlots: scratch)
   __shared__ T2 pa[kSlots + 1][NT], pb[kSlots + 1][NT];
-  __shared__ T2 octagon[kStart][L];  // each lane's start polygon
+  __shared__ T2 octagon[kOctagon][L];  // each lane's start polygon
   __shared__ T plane[NT][3];         // a listed pair's neighbour's nx, ny, d
   __shared__ bool mixed[NT];         // ... and whether it is reconstructed
   __shared__ T contrib[NT];          // contrib[9 * (lane - first lane) + neighbour]
@@ -193,6 +199,11 @@ overlap_kernel(const T* __restrict__ sx, const T* __restrict__ sy,
       y[s] = sy[(size_t)s * m + lane];
       octagon[s][t].x = x[s];
       octagon[s][t].y = y[s];
+    }
+#pragma unroll
+    for (int s = kStart; s < kOctagon; ++s) {
+      octagon[s][t].x = T(0);
+      octagon[s][t].y = T(0);
     }
     T acc = T(0);
 #pragma unroll
@@ -278,13 +289,13 @@ overlap_kernel(const T* __restrict__ sx, const T* __restrict__ sy,
   }
 }
 
-template <typename T, int L, int kStage>
+template <typename T, int L, int kStage, int kStart>
 int launch(const void* sx, const void* sy, const void* li, const void* lj, const void* vf,
            const void* valid, const void* nx, const void* ny, const void* d, int M, int m,
            double dx, double dy, double lo, void* overlap, void* area, cudaStream_t stream) {
   if (m == 0) return cudaSuccess;
   const int blocks = (m + L - 1) / L;
-  overlap_kernel<T, L, kStage><<<blocks, 9 * L, 0, stream>>>(
+  overlap_kernel<T, L, kStage, kStart><<<blocks, 9 * L, 0, stream>>>(
       static_cast<const T*>(sx), static_cast<const T*>(sy), static_cast<const int64_t*>(li),
       static_cast<const int64_t*>(lj), static_cast<const T*>(vf),
       static_cast<const uint8_t*>(valid), static_cast<const T*>(nx), static_cast<const T*>(ny),
@@ -293,16 +304,16 @@ int launch(const void* sx, const void* sy, const void* li, const void* lj, const
   return cudaGetLastError();
 }
 
-template <int kStage>
+template <int kStage, int kStart = kOctagon>
 int dispatch(int dtype, const void* sx, const void* sy, const void* li, const void* lj,
              const void* vf, const void* valid, const void* nx, const void* ny, const void* d,
              int M, int m, double dx, double dy, double lo, void* overlap, void* area,
              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? launch<float, 16, kStage>(sx, sy, li, lj, vf, valid, nx, ny, d, M, m, dx, dy, lo,
+             ? launch<float, 16, kStage, kStart>(sx, sy, li, lj, vf, valid, nx, ny, d, M, m, dx, dy, lo,
                                          overlap, area, s)
-             : launch<double, 8, kStage>(sx, sy, li, lj, vf, valid, nx, ny, d, M, m, dx, dy, lo,
+             : launch<double, 8, kStage, kStart>(sx, sy, li, lj, vf, valid, nx, ny, d, M, m, dx, dy, lo,
                                          overlap, area, s);
 }
 
@@ -320,6 +331,16 @@ extern "C" int fs_overlap(int dtype, const void* sx, const void* sy, const void*
   (void)N;
   return fs::dispatch<fs::kFull>(dtype, sx, sy, li, lj, vf, valid, nx, ny, d, M, m, dx, dy, lo,
                                  overlap, area, stream);
+}
+
+// fs_overlap with a quad start polygon: sx, sy are (4, m).
+extern "C" int fs_overlap_quad(int dtype, const void* sx, const void* sy, const void* li,
+                               const void* lj, const void* vf, const void* valid, const void* nx,
+                               const void* ny, const void* d, int N, int M, int m, double dx,
+                               double dy, double lo, void* overlap, void* area, void* stream) {
+  (void)N;
+  return fs::dispatch<fs::kFull, 4>(dtype, sx, sy, li, lj, vf, valid, nx, ny, d, M, m, dx, dy,
+                                    lo, overlap, area, stream);
 }
 
 // A measurement probe with fs_overlap's arguments after `stage`: the same

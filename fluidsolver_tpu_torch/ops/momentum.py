@@ -1,6 +1,7 @@
 """Momentum transport on the staggered grid: port of
 ``fluidsolver_tpu.ops.momentum`` (momentum and density transport, the
-two-phase property mixing and the capillary pressure jump).
+two-phase property mixing, the capillary pressure jump and the tangent-
+force alternative to it).
 
 Conservative flux form with hybrid central/upwind interpolation at density
 jumps, the same expressions in the same floating-point order as the JAX
@@ -234,3 +235,27 @@ def calc_pressure_jump(vf, curv, interface_length, sigma: float, dx: float, dy: 
     curv_face = _face_curvature(curv[1:-1, :-1], curv[1:-1, 1:], L[1:-1, :-1], L[1:-1, 1:])
     p_jump_v = pad_interior(sigma * curv_face * (vf[1:-1, 1:] - vf[1:-1, :-1]) / dy)
     return p_jump_u, p_jump_v
+
+
+# ---- surface tension as explicit tangential forces ---------------------------
+def calc_surface_tension_force(rec_nx, rec_ny, valid, sigma: float):
+    """The reference's alternative capillary model (src/FS.hpp:469-566): at
+    each face whose two cells both carry a PLIC reconstruction, the face-
+    normal component of sigma * (t_right - t_left), the cells' tangents
+    t = (-n_y, n_x) turned away from the face on the left (bottom) and
+    towards +x (+y) on the right (top). ``valid``: the interior mixed
+    cells. Returns (f_sigma_u, f_sigma_v) on the staggered grids, zero
+    ghost rings."""
+    tx, ty = -rec_ny, rec_nx
+    zero = torch.zeros((), dtype=tx.dtype, device=tx.device)
+
+    both = valid[:-1, 1:-1] & valid[1:, 1:-1]
+    t_left = torch.where(tx[:-1, 1:-1] > 0.0, -tx[:-1, 1:-1], tx[:-1, 1:-1])
+    t_right = torch.where(tx[1:, 1:-1] < 0.0, -tx[1:, 1:-1], tx[1:, 1:-1])
+    f_sigma_u = pad_interior(torch.where(both, sigma * (t_right - t_left), zero))
+
+    both = valid[1:-1, :-1] & valid[1:-1, 1:]
+    t_bot = torch.where(ty[1:-1, :-1] > 0.0, -ty[1:-1, :-1], ty[1:-1, :-1])
+    t_top = torch.where(ty[1:-1, 1:] < 0.0, -ty[1:-1, 1:], ty[1:-1, 1:])
+    f_sigma_v = pad_interior(torch.where(both, sigma * (t_top - t_bot), zero))
+    return f_sigma_u, f_sigma_v

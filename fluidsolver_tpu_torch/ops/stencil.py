@@ -44,11 +44,31 @@ def shift_pressure_to_zero(dp: torch.Tensor, dx: float, dy: float) -> torch.Tens
     return dp - integrate(dp, dx, dy, include_ghost=True)
 
 
+# ---- centred gradients with one-sided edge closure ------------------------------
+def grad_centered(f: torch.Tensor, dx: float, dy: float):
+    """d/dx and d/dy of a cell-centred field over the full ghost box, with
+    second-order one-sided stencils on the outermost rows and columns."""
+    dfdx = torch.zeros_like(f)
+    dfdy = torch.zeros_like(f)
+    dfdx[1:-1, :] = (f[2:, :] - f[:-2, :]) / (2.0 * dx)
+    dfdx[0, :] = (-3.0 * f[0, :] + 4.0 * f[1, :] - f[2, :]) / (2.0 * dx)
+    dfdx[-1, :] = (3.0 * f[-1, :] - 4.0 * f[-2, :] + f[-3, :]) / (2.0 * dx)
+    dfdy[:, 1:-1] = (f[:, 2:] - f[:, :-2]) / (2.0 * dy)
+    dfdy[:, 0] = (-3.0 * f[:, 0] + 4.0 * f[:, 1] - f[:, 2]) / (2.0 * dy)
+    dfdy[:, -1] = (3.0 * f[:, -1] - 4.0 * f[:, -2] + f[:, -3]) / (2.0 * dy)
+    return dfdx, dfdy
+
+
 # ---- point sampling ---------------------------------------------------------
 def _bilinear_indices(pos, g0: float, delta: float, n: int):
     """Lower and upper interior cell indices of the bilinear stencil at
-    ``pos``, clamped to [0, n) (constant extrapolation outside)."""
-    q = (pos - g0) / delta
+    ``pos``, clamped to [0, n) (constant extrapolation outside). The offset
+    is divided by a 0-d tensor: CUDA divides by a Python scalar as a
+    multiplication by its reciprocal, which can leave a point on a node
+    half an ulp below the integer, and ``floor(q + 1)`` then skips a cell
+    (the JAX package's expression, kept); a true division rounds alike on
+    the CPU and the card."""
+    q = (pos - g0) / torch.full((), delta, dtype=pos.dtype, device=pos.device)
     prev = torch.floor(q).to(torch.int64)
     nxt = torch.floor(q + 1.0).to(torch.int64)
     lo = (pos <= g0) | (prev < 0)

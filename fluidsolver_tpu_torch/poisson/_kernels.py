@@ -78,6 +78,8 @@ _SIGNATURES = {
     # dtype, slots_x, slots_y, lane_i, lane_j, vf, valid, nx, ny, d, N, M, m,
     # dx, dy, lo, overlap, area, stream
     "fs_overlap": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P, _P, _P),
+    # fs_overlap's arguments, slots_x and slots_y (4, m) quads
+    "fs_overlap_quad": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P, _P, _P),
     # stage (0 an empty launch, 1 without the chains), then fs_overlap's
     # arguments (a measurement probe)
     "fs_overlap_probe": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P,

@@ -2,9 +2,10 @@
 
 The fields, their defaults and their meaning are those of the JAX package's
 ``SolverConfig``; ``config_from_jax`` converts one of those into this one.
-The port's steps support the subset that ``solvers/incomp.py`` checks for
-(every pressure solver and method; no immersed boundary, no
-``pressure_precond_dtype``).
+The port's steps support the subset that ``solvers/incomp.py`` and
+``solvers/twophase.py`` check for (everything but
+``pressure_precond_dtype``, a refresh policy other than "solve" and
+"step", and a mesh).
 """
 
 from __future__ import annotations

@@ -9,9 +9,16 @@ solve -> gauge shift -> projection }.
 The pressure solve takes the JAX package's whole surface: ``pressure_method``
 "pcg", "bicgstab", "gmres" or "mgsolve" around ``pressure_solver`` "mg",
 "boxmg", "jacobi" or "none", or ``pressure_solver="direct"`` (dense, small
-boxes). Not ported, and raising: ``pressure_precond_dtype`` and immersed
-boundaries. The step reads ``dt > 0`` and each solver iteration's exit test
-back to the host (``core.sync``).
+boxes). Not ported, and raising: ``pressure_precond_dtype``.
+
+Immersed boundaries (``cfg.ib_mode`` with the fields ``ib`` passed to
+``make_step``): "luchini" replaces the velocity update by the exponential
+integrator, "luchini_implicit" divides the updated velocity, "diffuse" and
+"sharp" force the velocity after the outflow correction, before the
+divergence. ``ib`` may be a callable of the state (a solid that moves with
+time) and ``div_source(state, dt)`` adds a mass source to the divergence;
+both are evaluated on the device. The step reads ``dt > 0`` and each
+solver iteration's exit test back to the host (``core.sync``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from fluidsolver_tpu_torch.core import bc as bc_mod
 from fluidsolver_tpu_torch.core import fields, sync
 from fluidsolver_tpu_torch.core.grid import Grid
+from fluidsolver_tpu_torch.ib import diffuse, luchini, sharp
 from fluidsolver_tpu_torch.ops import momentum as mom
 from fluidsolver_tpu_torch.ops import stencil
 from fluidsolver_tpu_torch.poisson import cg, krylov, linsys
@@ -35,6 +43,7 @@ from fluidsolver_tpu_torch.solvers.state import (FlowState, clamp_dt_to_end,
 
 PRESSURE_SOLVERS = ("mg", "boxmg", "jacobi", "none", "direct")
 PRESSURE_METHODS = ("pcg", "bicgstab", "gmres", "mgsolve")
+IB_MODES = (None, "diffuse", "sharp", "luchini", "luchini_implicit")
 
 
 def _check_supported(cfg: SolverConfig) -> None:
@@ -47,8 +56,8 @@ def _check_supported(cfg: SolverConfig) -> None:
                          "(the V-cycle is the solver)")
     if cfg.pressure_precond_dtype is not None:
         raise ValueError("pressure_precond_dtype is not ported")
-    if cfg.ib_mode is not None:
-        raise ValueError("immersed boundaries are not ported")
+    if cfg.ib_mode not in IB_MODES:
+        raise ValueError(f"unknown ib_mode: {cfg.ib_mode!r}")
 
 
 def _periodic_axes(cfg: SolverConfig) -> tuple[bool, bool]:
@@ -116,9 +125,14 @@ def project_velocity(U, V, delta_p, rho_u, rho_v, dt, dx: float, dy: float):
     return U, V
 
 
-def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device) -> Callable:
+def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, ib=None,
+              div_source: Optional[Callable] = None) -> Callable:
     """Build ``step(state, t_end) -> state`` for states of ``dtype`` on
-    ``device``.
+    ``device``. ``ib``: the immersed-boundary fields of ``cfg.ib_mode``
+    (``ib.diffuse.DiffuseIB``, ``ib.sharp.SharpIB`` or
+    ``ib.luchini.LuchiniIB`` on ``device``), or a callable of the state
+    that returns them; ``div_source(state, dt)``: a cell-centred field added
+    to the divergence before each pressure solve.
 
     Single-phase density is constant (``cfg.rho_gas``), so the multigrid
     hierarchy ("mg" or "boxmg") is built here once, on ``device``, from
@@ -126,12 +140,15 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device) -> Call
     The solver's operator itself is assembled from ``state.rho_u``/``rho_v``
     at every solve."""
     _check_supported(cfg)
+    if cfg.ib_mode is not None and ib is None:
+        raise ValueError(f"ib_mode={cfg.ib_mode!r} requires precomputed ib fields")
     device = torch.device(device)
     rho_eps = mom.calc_rho_eps(cfg.rho_gas, cfg.rho_liquid)
     levels = build_step_levels(fields.full_u(grid, cfg.rho_gas, dtype, device),
                                fields.full_v(grid, cfg.rho_gas, dtype, device), grid, cfg)
 
     def subiter(state: FlowState, dp_prev, dt, k: int):
+        ib_f = ib(state) if callable(ib) else ib
         U = stencil.mid_time(state.U, state.U_old)
         V = stencil.mid_time(state.V, state.V_old)
         dmomU, dmomV = mom.calc_dmomdt(
@@ -142,10 +159,18 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device) -> Call
             gx, gy = cfg.gravity
             dmomU = fields.add_interior(dmomU, gx * state.rho_u[1:-1, 1:-1])
             dmomV = fields.add_interior(dmomV, gy * state.rho_v[1:-1, 1:-1])
-        U, V = mom.update_velocity(
-            state.U_old, state.V_old, state.rho_u_old, state.rho_v_old,
-            state.rho_u, state.rho_v, dmomU, dmomV, dt, U, V,
-        )
+        if cfg.ib_mode == "luchini":
+            U, V = luchini.update_velocity_semi_analytical(
+                dmomU, dmomV, dt, ib_f, state.U_old, state.V_old, state.rho_u_old,
+                state.rho_v_old, state.rho_u, state.rho_v, state.visc, U, V)
+        else:
+            U, V = mom.update_velocity(
+                state.U_old, state.V_old, state.rho_u_old, state.rho_v_old,
+                state.rho_u, state.rho_v, dmomU, dmomV, dt, U, V,
+            )
+            if cfg.ib_mode == "luchini_implicit":
+                U, V = luchini.correct_velocity_implicit_euler(U, V, ib_f, dt, state.visc,
+                                                               state.rho_u, state.rho_v)
         U, V = bc_mod.apply_velocity_bcs(U, V, grid, cfg.bcs, state.t)
 
         if cfg.outflow_correction:
@@ -161,7 +186,14 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device) -> Call
             U[0, :] += (cfg.flow_forcing - inflow) / (state.rho_u[0, :] * grid.dy * ncols)
             U[-1, :] += (cfg.flow_forcing - outflow) / (state.rho_u[-1, :] * grid.dy * ncols)
 
+        if cfg.ib_mode == "diffuse":
+            U, V, _, _ = diffuse.apply_direct_forcing(U, V, ib_f)
+        elif cfg.ib_mode == "sharp":
+            U, V = sharp.apply_forcing(U, V, ib_f)
+
         div = stencil.divergence(U, V, grid.dx, grid.dy)
+        if div_source is not None:
+            div = div + div_source(state, dt)
         tol = cfg.pressure_tol
         if cfg.pressure_tol_intermediate is not None and k != cfg.num_subiter - 1:
             tol = cfg.pressure_tol_intermediate
@@ -213,10 +245,10 @@ def run(state: FlowState, t_end: float, grid: Grid, cfg: SolverConfig,
 
 
 def make_fixed_runner(grid: Grid, cfg: SolverConfig, n_steps: int, dtype: torch.dtype,
-                      device) -> Callable:
+                      device, ib=None, div_source: Optional[Callable] = None) -> Callable:
     """Fixed-step runner (the JAX package's ``make_scan_runner``): ``n_steps``
     steps; steps past ``t_end`` clamp to dt = 0 no-ops."""
-    step = make_step(grid, cfg, dtype, device)
+    step = make_step(grid, cfg, dtype, device, ib=ib, div_source=div_source)
 
     def run_n(state: FlowState, t_end: float) -> FlowState:
         for _ in range(n_steps):

@@ -4,19 +4,27 @@
 One step: dt (CFL with the capillary and gravity limits) -> state rotation
 -> ELVIRA reconstruction of vf_old (kernel #10) -> density from vf_old ->
 geometric VOF advection (kernel #12) -> viscosity from the new vf ->
-curvature (kernel #11) and interface length from the vf_old reconstruction
--> ``num_subiter`` subiterations of { Crank-Nicolson midpoint; consistent
-density transport; momentum with hybrid upwinding and gravity; BCs and the
-outflow correction; divergence plus the pressure-jump increment; pressure
-solve; projection }.
+curvature (kernel #11, or a plain-PyTorch estimator) and interface length
+from the vf_old reconstruction -> ``num_subiter`` subiterations of {
+Crank-Nicolson midpoint; consistent density transport; momentum with hybrid
+upwinding and gravity; BCs and the outflow correction; divergence plus the
+capillary term and the phase-change source; pressure solve; projection }.
 
-Supported configuration: the pressure solvers of ``solvers/incomp.py`` (no
-immersed boundary) with the production VOF path (sparse advection,
-volume-matching curvature, pressure-jump surface tension).
+Options, as in the JAX package: the pressure solvers of
+``solvers/incomp.py``; ``vof_max_active`` (0: the dense advection) and
+the A/B advection variants ``vof_no_correction`` and
+``vof_staggered_backtrace``; ``curvature_method`` "volume_matching",
+"regression" or "convolved"; ``surface_tension_method`` "pressure_jump"
+(the jump increment folded into the RHS) or "tangent_force" (the
+divergence of the explicit tangential pull in the RHS, p_jump left as it
+is); ``phase_change_mdot`` (the PLIC planes shifted into the liquid by the
+Stefan displacement before the advection, and each mixed cell's m_dot A
+spread as a divergence source over the pure-liquid cells of its 3x3 box).
 ``pressure_precond_refresh`` "solve" builds the multigrid hierarchy ("mg"
 or "boxmg") inside every solve; "step" builds it once per step from
 subiteration 0's transported densities and reuses it for the rest; a
-solver without a hierarchy has none to build. Other settings raise.
+solver without a hierarchy has none to build. Other refresh policies,
+``pressure_precond_dtype`` and a mesh raise.
 
 The step runs the reference's fused composition (its ``FS_PALLAS_CG`` and
 ``FS_PALLAS_MOMENTUM``): the fused PCG iteration (kernels 5-7, in
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from fluidsolver_tpu_torch.constants import vf_cutoffs
 from fluidsolver_tpu_torch.core import bc as bc_mod
 from fluidsolver_tpu_torch.core import fields, sync
 from fluidsolver_tpu_torch.core.grid import Grid
@@ -56,7 +65,8 @@ from fluidsolver_tpu_torch.solvers.state import (FlowState, clamp_dt_to_end, end
                                                   state_to_numpy)
 from fluidsolver_tpu_torch.vof import advect as adv
 from fluidsolver_tpu_torch.vof import plic
-from fluidsolver_tpu_torch.vof.curvature import curvature_quad_volume_matching
+from fluidsolver_tpu_torch.vof.curvature import (curvature_convolved_vf, curvature_quad_regression,
+                                                  curvature_quad_volume_matching)
 
 
 # profiler ranges around the VOF stage and each pressure solve (with its
@@ -109,18 +119,48 @@ def two_phase_state_to_numpy(state: TwoPhaseState) -> dict:
     return out
 
 
+CURVATURE = {"volume_matching": curvature_quad_volume_matching,
+             "regression": curvature_quad_regression,
+             "convolved": curvature_convolved_vf}
+
+
 def _check_supported(cfg: SolverConfig) -> None:
-    if cfg.surface_tension_method != "pressure_jump":
-        raise ValueError(f"surface_tension_method={cfg.surface_tension_method!r} is not ported")
-    if cfg.phase_change_mdot is not None:
-        raise ValueError("phase change (phase_change_mdot) is not ported")
     if cfg.pressure_precond_refresh not in ("solve", "step"):
         raise ValueError(f"pressure_precond_refresh={cfg.pressure_precond_refresh!r}: "
                          "use 'solve' or 'step'")
-    if cfg.vof_max_active == 0 or cfg.vof_no_correction or cfg.vof_staggered_backtrace:
-        raise ValueError("the dense VOF advection and its A/B variants are not ported")
-    if cfg.curvature_method != "volume_matching":
-        raise ValueError(f"curvature_method={cfg.curvature_method!r} is not ported")
+    if cfg.surface_tension_method not in ("pressure_jump", "tangent_force"):
+        raise ValueError(f"unknown surface_tension_method: {cfg.surface_tension_method!r}")
+    if cfg.curvature_method not in CURVATURE:
+        raise ValueError(f"unknown curvature_method: {cfg.curvature_method!r}")
+
+
+def _phase_change_source(vf_old, m_dot_A, cfg: SolverConfig, grid: Grid):
+    """The expansion source on the pure-liquid interior cells: the m_dot A
+    of the 3x3 box over the box's share of pure liquid, times the specific
+    volume jump, per cell area (examples/ExpandingBubble.cpp:302-321)."""
+    pure = (vf_old >= vf_cutoffs(vf_old.dtype)[1]).to(vf_old.dtype)
+
+    def box3(f):
+        # the 3x3 sum over the interior: every neighbour lies in the box
+        total = torch.zeros_like(f[1:-1, 1:-1])
+        for di, dj in plic.NEIGHBOR_OFFSETS:
+            total = total + plic.shift(f, di, dj)
+        return total
+
+    avg = box3(pure) / 9.0
+    msum = box3(m_dot_A)
+    avg_safe = torch.where(avg > 0.0, avg, torch.ones_like(avg))
+    src = msum / avg_safe * (1.0 / cfg.rho_gas - 1.0 / cfg.rho_liquid) / (grid.dx * grid.dy)
+    return torch.where(pure[1:-1, 1:-1] > 0.0, src, torch.zeros_like(src))
+
+
+def _tangent_force_rhs(rec, dt, cfg: SolverConfig, grid: Grid):
+    """The divergence term of the tangential pull (TwoPhaseSolver.cpp:348-355,
+    with its calibration ``tangent_force_scale``) over the interior."""
+    fsu, fsv = mom.calc_surface_tension_force(rec.nx, rec.ny, rec.valid, cfg.sigma)
+    return -dt * cfg.tangent_force_scale * (
+        (fsu[2:-1, 1:-1] - fsu[1:-2, 1:-1]) / grid.dx
+        + (fsv[1:-1, 2:-1] - fsv[1:-1, 1:-2]) / grid.dy)
 
 
 def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=None) -> Callable:
@@ -136,8 +176,13 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
     gx, gy = cfg.gravity
     per_step = cfg.pressure_precond_refresh == "step"
 
+    tangent = cfg.surface_tension_method == "tangent_force"
+    curvature = CURVATURE[cfg.curvature_method]
+
     def subiter(fs: FlowState, dp_prev, vof, dt, k: int, levels):
-        vf_old, curv, iface_len = vof
+        # tangent_rhs / source: the tangential pull's and the phase change's
+        # divergence terms over the interior (made once a step), or None
+        vf_old, curv, iface_len, tangent_rhs, source = vof
         U = stencil.mid_time(fs.U, fs.U_old)
         V = stencil.mid_time(fs.V, fs.V_old)
 
@@ -155,15 +200,22 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
             _, _, mass_err = mom.inflow_outflow(U, rho_u)
             U = mom.correct_outflow(U, rho_u, mass_err)
 
-        # capillary forcing: the pressure-jump increment folded into the RHS
         div = stencil.divergence(U, V, grid.dx, grid.dy)
-        pj_u, pj_v = mom.calc_pressure_jump(vf_old, curv, iface_len, cfg.sigma, grid.dx, grid.dy)
-        dpj_u = pj_u - fs.p_jump_u
-        dpj_v = pj_v - fs.p_jump_v
-        div = fields.add_interior(div, dt * (
-            (dpj_u[2:-1, 1:-1] / rho_u[2:-1, 1:-1] - dpj_u[1:-2, 1:-1] / rho_u[1:-2, 1:-1]) / grid.dx
-            + (dpj_v[1:-1, 2:-1] / rho_v[1:-1, 2:-1] - dpj_v[1:-1, 1:-2] / rho_v[1:-1, 1:-2]) / grid.dy
-        ))
+        if tangent:
+            # the tangential pull replaces the jump, which stays as it is
+            pj_u, pj_v = fs.p_jump_u, fs.p_jump_v
+            div = fields.add_interior(div, tangent_rhs)
+        else:
+            # capillary forcing: the pressure-jump increment folded into the RHS
+            pj_u, pj_v = mom.calc_pressure_jump(vf_old, curv, iface_len, cfg.sigma, grid.dx, grid.dy)
+            dpj_u = pj_u - fs.p_jump_u
+            dpj_v = pj_v - fs.p_jump_v
+            div = fields.add_interior(div, dt * (
+                (dpj_u[2:-1, 1:-1] / rho_u[2:-1, 1:-1] - dpj_u[1:-2, 1:-1] / rho_u[1:-2, 1:-1]) / grid.dx
+                + (dpj_v[1:-1, 2:-1] / rho_v[1:-1, 2:-1] - dpj_v[1:-1, 1:-2] / rho_v[1:-1, 1:-2]) / grid.dy
+            ))
+        if source is not None:
+            div = fields.add_interior(div, -source)
         fs = dataclasses.replace(fs, rho_u=rho_u, rho_v=rho_v, p_jump_u=pj_u, p_jump_v=pj_v)
 
         tol = cfg.pressure_tol
@@ -201,23 +253,39 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
             rho_u, rho_v = mom.mix_rho_staggered(vf_old, cfg.rho_gas, cfg.rho_liquid)
             fs = dataclasses.replace(fs, rho_u=rho_u, rho_v=rho_v, rho_u_old=rho_u,
                                      rho_v_old=rho_v)
+            tangent_rhs = source = None
+            if cfg.phase_change_mdot is not None:
+                # the interfacial mass flux: each mixed cell's m_dot A for the
+                # expansion source, and the Stefan shift of its plane into
+                # the liquid, s = m_dot (1/rho_g - 1/rho_l) dt
+                zero = torch.zeros_like(vf_old)
+                m_dot_A = torch.where(rec.valid, plic.interface_length(rec, grid.dx, grid.dy)
+                                      * cfg.phase_change_mdot, zero)
+                stefan = cfg.phase_change_mdot * dt * (1.0 / cfg.rho_gas - 1.0 / cfg.rho_liquid)
+                rec = dataclasses.replace(rec, d=torch.where(rec.valid, rec.d - stefan, rec.d))
+                source = _phase_change_source(vf_old, m_dot_A, cfg, grid)
             vf, vol_err = adv.advect(vf_old, rec, fs.U, fs.V, stencil.interp_u_center(fs.U),
                                      stencil.interp_v_center(fs.V), grid, dt,
-                                     max_active=cfg.vof_max_active)
+                                     max_active=cfg.vof_max_active,
+                                     no_correction=cfg.vof_no_correction,
+                                     staggered=cfg.vof_staggered_backtrace)
             vol_err = torch.where(rec.overflow, torch.full_like(vol_err, float("inf")), vol_err)
 
             # viscosity from the new vf; curvature and length from vf_old's planes
             visc = mom.mix_visc(vf, cfg.visc_gas, cfg.visc_liquid, cfg.arithmetic_visc)
             fs = dataclasses.replace(fs, visc=visc, p_iter=torch.zeros_like(fs.p_iter))
-            curv = curvature_quad_volume_matching(vf_old, rec, grid)
+            curv = curvature(vf_old, rec, grid)
             iface_len = plic.interface_length(rec, grid.dx, grid.dy)
+            if tangent:
+                tangent_rhs = _tangent_force_rhs(rec, dt, cfg, grid)
 
         # dt == 0 (t_end reached) skips the physics: the Poisson RHS divides by dt
         if sync.read(dt > 0.0):
             dp = torch.zeros_like(fs.p)
             levels = None
             for k in range(cfg.num_subiter):
-                fs, dp, levels = subiter(fs, dp, (vf_old, curv, iface_len), dt, k, levels)
+                fs, dp, levels = subiter(fs, dp, (vf_old, curv, iface_len, tangent_rhs, source),
+                                         dt, k, levels)
         fs = dataclasses.replace(fs, t=fs.t + dt, dt=dt)
         return TwoPhaseState(flow=fs, vf=vf, vf_old=vf_old, curv=curv,
                              interface_length=iface_len, vof_vol_error=vol_err)

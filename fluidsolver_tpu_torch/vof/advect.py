@@ -1,5 +1,4 @@
-"""Unsplit geometric VOF advection: port of the sparse active-cell path of
-``fluidsolver_tpu.vof.advect``.
+"""Unsplit geometric VOF advection: port of ``fluidsolver_tpu.vof.advect``.
 
 The cells whose 3x3 neighbourhood is neither all gas nor all liquid are
 compacted, in row-major order, into ``max_active`` lanes. Per lane the 4
@@ -16,8 +15,15 @@ Everything stays on the device: the compaction is ``nonzero_static``
 indices and scatter into a scratch slot, and an active set larger than
 the budget comes out as an infinite volume error.
 
-Not ported: the dense all-cells oracle (``max_active=0``) and the A/B
-variants ``no_correction`` and ``staggered``.
+``max_active=0`` runs the dense all-cells path instead, the oracle of the
+sparse one: the same per-cell arithmetic on every interior cell in plain
+PyTorch (the JAX package's dense path reaches no TPU kernel either). Two
+A/B variants of the reference's compile-time switches change only the
+start polygon and the backtrace, on either path: ``no_correction``
+(VOF_NO_CORRECTION: the plain backtraced quadrilateral, no flux-matched
+face caps; on the sparse path its four slots go to kernel #12 as they
+are) and ``staggered`` (FS_VOF_ADVECT_WITH_STAGGERED_VELOCITY: RK4
+through the raw staggered velocity).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 from fluidsolver_tpu_torch.constants import vf_cutoffs
 from fluidsolver_tpu_torch.core.fields import set_interior
 from fluidsolver_tpu_torch.core.grid import Grid
-from fluidsolver_tpu_torch.ops.stencil import sample_centered_stack
+from fluidsolver_tpu_torch.ops.stencil import sample_centered, sample_centered_stack
 from fluidsolver_tpu_torch.vof.plic import NEIGHBOR_OFFSETS, Plic, shift
 
 K = 16  # vertex buffer size of the plain clip chain
@@ -46,6 +52,27 @@ def backtrack_rk4(px, py, Ui, Vi, grid: Grid, dt):
     def vel(x, y):
         uv = sample_centered_stack(UiVi, x0, grid.dx, y0, grid.dy, x, y)
         return uv[0], uv[1]
+
+    u1, v1 = vel(px, py)
+    u2, v2 = vel(px - 0.5 * dt * u1, py - 0.5 * dt * v1)
+    u3, v3 = vel(px - 0.5 * dt * u2, py - 0.5 * dt * v2)
+    u4, v4 = vel(px - dt * u3, py - dt * v3)
+    return (
+        px - dt / 6.0 * (u1 + 2.0 * u2 + 2.0 * u3 + u4),
+        py - dt / 6.0 * (v1 + 2.0 * v2 + 2.0 * v3 + v4),
+    )
+
+
+def backtrack_rk4_staggered(px, py, U, V, grid: Grid, dt):
+    """RK4 backward trace through the raw staggered velocity (the reference's
+    ``advect_point2``): u bilinear on the (x-face, y-centre) lattice, v on
+    the (x-centre, y-face) lattice, the stage displacements shared."""
+    xf0, yc0 = float(grid.x[1]), float(grid.ym[1])
+    xc0, yf0 = float(grid.xm[1]), float(grid.y[1])
+
+    def vel(x, y):
+        return (sample_centered(U, xf0, grid.dx, yc0, grid.dy, x, y),
+                sample_centered(V, xc0, grid.dx, yf0, grid.dy, x, y))
 
     u1, v1 = vel(px, py)
     u2, v2 = vel(px - 0.5 * dt * u1, py - 0.5 * dt * v1)
@@ -98,6 +125,18 @@ def octagon_slots(a00x, a00y, a10x, a10y, a11x, a11y, a01x, a01y,
     mWx, mWy = _face_midpoint(a01x, a01y, a00x, a00y, zeros, dya, zeros, zeros, -U_W * dy * dt)
     return ([a00x, mSx, a10x, mEx, a11x, mNx, a01x, mWx],
             [a00y, mSy, a10y, mEy, a11y, mNy, a01y, mWy])
+
+
+def start_slots(ax, ay, U_W, U_E, V_S, V_N, dx: float, dy: float, dt, no_correction: bool):
+    """The start polygon's vertices from the backtracked corners ``ax``,
+    ``ay`` (sequences in the order p00, p10, p11, p01, cell-local): the
+    flux-corrected octagon, or under ``no_correction`` the plain quad of
+    the corners, whose area is not reconciled with the face fluxes (an
+    O(dt div_h) volume error a step)."""
+    if no_correction:
+        return list(ax), list(ay)
+    corners = [c for xy in zip(ax, ay) for c in xy]
+    return octagon_slots(*corners, U_W, U_E, V_S, V_N, dx, dy, dt)
 
 
 # ---- the plain clip chain (twin of kernel #12) --------------------------------
@@ -165,12 +204,14 @@ def overlap_from_neighbors(vx, vy, n, gathered, dx: float, dy: float):
     cell ∩ neighbour liquid half-plane), counted where the neighbour's
     fraction exceeds the mixed-cell cutoff. ``gathered``: (5, 9, m) lane
     data [vf, valid (0/1), plic nx, plic ny, plic d] in NEIGHBOR_OFFSETS
-    order; the polygons (m, K) are broadcast over the neighbours."""
+    order; the polygons (m, K) are broadcast over the neighbours. The lane
+    axis may be any shape: (nx, ny) on the dense path."""
     vf_nb, mixed = gathered[0], gathered[1] > 0.5
     pnx, pny, pd = gathered[2], gathered[3], gathered[4]
     offs = torch.tensor(NEIGHBOR_OFFSETS, dtype=vx.dtype, device=vx.device)
-    x_lo = (offs[:, 0] * dx)[:, None].expand_as(vf_nb)
-    y_lo = (offs[:, 1] * dy)[:, None].expand_as(vf_nb)
+    lead = (9,) + (1,) * (vf_nb.dim() - 1)
+    x_lo = (offs[:, 0] * dx).reshape(lead).expand_as(vf_nb)
+    y_lo = (offs[:, 1] * dy).reshape(lead).expand_as(vf_nb)
     ones, zeros = torch.ones_like(x_lo), torch.zeros_like(x_lo)
     vx = vx.expand(9, *vx.shape)
     vy = vy.expand(9, *vy.shape)
@@ -228,13 +269,20 @@ class Lanes:
     jjg: torch.Tensor
     n_active: torch.Tensor   # 0-d: active cells (may exceed m)
     all_liq: torch.Tensor    # (nx, ny) bool: the all-liquid early exit
-    slots_x: torch.Tensor    # (8, m) octagon vertices, cell-local
-    slots_y: torch.Tensor
+    slots_x: torch.Tensor    # (n0, m) start-polygon vertices, cell-local:
+    slots_y: torch.Tensor    # n0 = 8 (octagon) or 4 (quad, no_correction)
 
 
-def prepare_lanes(vf_old, U, V, Ui, Vi, grid: Grid, dt, m: int) -> Lanes:
+def _backtrack(px, py, U, V, Ui, Vi, grid: Grid, dt, staggered: bool):
+    if staggered:
+        return backtrack_rk4_staggered(px, py, U, V, grid, dt)
+    return backtrack_rk4(px, py, Ui, Vi, grid, dt)
+
+
+def prepare_lanes(vf_old, U, V, Ui, Vi, grid: Grid, dt, m: int, no_correction: bool = False,
+                  staggered: bool = False) -> Lanes:
     """Classify, compact the active cells into ``m`` lanes and build each
-    lane's backtracked, flux-corrected octagon."""
+    lane's backtracked start polygon."""
     nx, ny = grid.nx, grid.ny
     all_gas, all_liq = classify(vf_old)
     active = ~(all_gas | all_liq)
@@ -250,14 +298,13 @@ def prepare_lanes(vf_old, U, V, Ui, Vi, grid: Grid, dt, m: int) -> Lanes:
     y_lo_c, y_hi_c = gy[jjg], gy[jjg + 1]
     px = torch.stack([x_lo_c, x_hi_c, x_hi_c, x_lo_c], dim=-1)
     py = torch.stack([y_lo_c, y_lo_c, y_hi_c, y_hi_c], dim=-1)
-    AX, AY = backtrack_rk4(px, py, Ui, Vi, grid, dt)
+    AX, AY = _backtrack(px, py, U, V, Ui, Vi, grid, dt, staggered)
     ax = AX - x_lo_c[:, None]
     ay = AY - y_lo_c[:, None]
-    slots_x, slots_y = octagon_slots(
-        ax[:, 0], ay[:, 0], ax[:, 1], ay[:, 1], ax[:, 2], ay[:, 2], ax[:, 3], ay[:, 3],
+    slots_x, slots_y = start_slots(
+        ax.unbind(-1), ay.unbind(-1),
         U[1 + iig, 1 + jjg], U[2 + iig, 1 + jjg], V[1 + iig, 1 + jjg], V[1 + iig, 2 + jjg],
-        grid.dx, grid.dy, dt,
-    )
+        grid.dx, grid.dy, dt, no_correction)
     return Lanes(lin=lin, is_fill=is_fill, iig=iig, jjg=jjg, n_active=torch.sum(active),
                  all_liq=all_liq, slots_x=torch.stack(slots_x), slots_y=torch.stack(slots_y))
 
@@ -265,18 +312,17 @@ def prepare_lanes(vf_old, U, V, Ui, Vi, grid: Grid, dt, m: int) -> Lanes:
 def advect(vf_old, rec: Plic, U, V, Ui, Vi, grid: Grid, dt, max_active=None,
            no_correction: bool = False, staggered: bool = False):
     """One unsplit geometric advection of the VOF field. Returns (vf_new,
-    max volume error); the error is inf when the active set outgrows the
-    lane budget ``max_active`` (None = ``default_max_active``)."""
+    max volume error). ``max_active``: the lane budget of the sparse path
+    (None = ``default_max_active``); the error is inf when the active set
+    outgrows it. 0 runs the dense all-cells path."""
     if max_active == 0:
-        raise ValueError("the dense all-cells advection (max_active=0) is not ported")
-    if no_correction or staggered:
-        raise ValueError("the VOF A/B variants no_correction and staggered are not ported")
+        return advect_dense(vf_old, rec, U, V, Ui, Vi, grid, dt, no_correction, staggered)
     from fluidsolver_tpu_torch.vof import cuda_advect
 
     nx, ny = grid.nx, grid.ny
     dx, dy = grid.dx, grid.dy
     m = int(max_active or default_max_active(nx, ny))
-    lanes = prepare_lanes(vf_old, U, V, Ui, Vi, grid, dt, m)
+    lanes = prepare_lanes(vf_old, U, V, Ui, Vi, grid, dt, m, no_correction, staggered)
     overlap, oct_area = cuda_advect.overlap(lanes.slots_x, lanes.slots_y, vf_old, rec,
                                             lanes.iig, lanes.jjg, dx, dy)
     volume_error = torch.abs(dx * dy - torch.abs(oct_area))
@@ -291,3 +337,38 @@ def advect(vf_old, rec: Plic, U, V, Ui, Vi, grid: Grid, dt, max_active=None,
     vol_err = torch.max(torch.where(lane_valid, volume_error, torch.zeros_like(volume_error)))
     vol_err = torch.where(lanes.n_active > m, torch.full_like(vol_err, float("inf")), vol_err)
     return vf_out, vol_err
+
+
+def advect_dense(vf_old, rec: Plic, U, V, Ui, Vi, grid: Grid, dt, no_correction: bool = False,
+                 staggered: bool = False):
+    """The all-cells advection: every interior cell's start polygon clipped
+    against its 9 neighbours in one batch of plain PyTorch (the clip chain
+    holds nine (nx, ny, K) vertex planes at a time). Per cell the same
+    arithmetic as the sparse path. Returns (vf_new, max volume error)."""
+    dx, dy = grid.dx, grid.dy
+    gx, gy = _corner_coords(grid, vf_old.dtype, vf_old.device)
+    PX, PY = torch.meshgrid(gx, gy, indexing="ij")
+    AX, AY = _backtrack(PX, PY, U, V, Ui, Vi, grid, dt, staggered)
+    # corners in cell-local coordinates (origin: the cell's lower-left corner)
+    X0, Y0 = PX[:-1, :-1], PY[:-1, :-1]
+    ax = [AX[:-1, :-1] - X0, AX[1:, :-1] - X0, AX[1:, 1:] - X0, AX[:-1, 1:] - X0]
+    ay = [AY[:-1, :-1] - Y0, AY[1:, :-1] - Y0, AY[1:, 1:] - Y0, AY[:-1, 1:] - Y0]
+    slots_x, slots_y = start_slots(ax, ay, U[1:-2, 1:-1], U[2:-1, 1:-1], V[1:-1, 1:-2],
+                                   V[1:-1, 2:-1], dx, dy, dt, no_correction)
+    vx, vy, n = pad_slots(torch.stack(slots_x), torch.stack(slots_y))
+    oct_area = poly_area(vx, vy, n)
+    volume_error = torch.abs(dx * dy - torch.abs(oct_area))
+
+    planes = torch.stack([vf_old, rec.valid.to(vf_old.dtype), rec.nx, rec.ny, rec.d])
+    N, M = vf_old.shape
+    gathered = torch.stack([planes[:, 1 + di: N - 1 + di, 1 + dj: M - 1 + dj]
+                            for di, dj in NEIGHBOR_OFFSETS], dim=1)
+    overlap = overlap_from_neighbors(vx, vy, n, gathered, dx, dy)
+    vf_new = overlap / torch.where(oct_area == 0.0, torch.ones_like(oct_area), oct_area)
+
+    all_gas, all_liq = classify(vf_old)
+    early = all_gas | all_liq
+    vf_new = torch.where(all_gas, torch.zeros_like(vf_new),
+                         torch.where(all_liq, torch.ones_like(vf_new), vf_new))
+    volume_error = torch.where(early, torch.zeros_like(volume_error), volume_error)
+    return set_interior(vf_old, vf_new), torch.max(volume_error)

@@ -1,5 +1,5 @@
-"""Interface curvature from PLIC segments: port of the volume-matching
-method of ``fluidsolver_tpu.vof.curvature``.
+"""Interface curvature from PLIC segments: port of
+``fluidsolver_tpu.vof.curvature``.
 
 For each interior mixed cell the 3x3 neighbourhood's PLIC segments are
 rotated so that the cell's normal points to (0, -1) about its segment
@@ -9,17 +9,27 @@ Cramer's rule), and kappa = 2 c2 / (1 + c1^2)^(3/2); non-finite values and
 cells with fewer than two segments give 0. ``curvature_quad_volume_matching``
 runs kernel #11 (``vof/cuda_curvature.py``) on a CUDA tensor.
 
-The regression and convolved-vf methods are not ported.
+The two other estimators are plain PyTorch on either device (the JAX
+package's reach no TPU kernel): ``curvature_quad_regression``, a
+least-squares quadratic through the rotated segment midpoints, and
+``curvature_convolved_vf``, -div(grad/|grad|) of vf smoothed by a compact
+polynomial kernel, sampled at the segment midpoint or taken at the cell
+centre. Both keep the JAX package's operand order; the 9 x 9 smoothing is
+a fixed sequence of shifted adds, so it rounds alike on the CPU and the
+card (no TF32 convolution).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from fluidsolver_tpu_torch.core.grid import Grid
-from fluidsolver_tpu_torch.vof.plic import NEIGHBOR_OFFSETS, Plic, _div
+from fluidsolver_tpu_torch.ops.stencil import grad_centered, sample_centered
+from fluidsolver_tpu_torch.vof.plic import NEIGHBOR_OFFSETS, Plic, _div, segment_endpoints, shift
 
 
 def solve3_cramer(A, d):
@@ -100,3 +110,104 @@ def curvature_quad_volume_matching(vf_old: torch.Tensor, rec: Plic, grid: Grid) 
     from fluidsolver_tpu_torch.vof import cuda_curvature
 
     return cuda_curvature.curvature_vm(rec.nx, rec.ny, rec.d, rec.valid, grid.dx, grid.dy)
+
+
+def curvature_quad_regression(vf_old: torch.Tensor, rec: Plic, grid: Grid) -> torch.Tensor:
+    """Least-squares quadratic y = c0 + c1 x + c2 x^2 through the 3x3
+    neighbourhood's segment midpoints, rotated so that the cell's normal
+    points to (0, -1); kappa at the cell's own midpoint. Full ghost box,
+    0 off the interior mixed cells."""
+    dx, dy = grid.dx, grid.dy
+    x0, y0, x1, y1 = segment_endpoints(rec, dx, dy)
+    t_nx, t_ny, t_valid = shift(rec.nx, 0, 0), shift(rec.ny, 0, 0), shift(rec.valid, 0, 0)
+    angle = torch.acos(torch.clamp(-t_ny, -1.0, 1.0))
+    angle = torch.where(t_nx > 0.0, 2.0 * math.pi - angle, angle)
+    ca, sa = torch.cos(angle), torch.sin(angle)
+    cx = 0.5 * (shift(x0, 0, 0) + shift(x1, 0, 0))
+    cy = 0.5 * (shift(y0, 0, 0) + shift(y1, 0, 0))
+
+    zero = torch.zeros_like(cx)
+    A = {(r, c): zero for r in range(3) for c in range(r, 3)}
+    bvec = [zero, zero, zero]
+    x_eval = None
+    for di, dj in NEIGHBOR_OFFSETS:
+        mx = 0.5 * (shift(x0, di, dj) + shift(x1, di, dj)) + di * dx - cx
+        my = 0.5 * (shift(y0, di, dj) + shift(y1, di, dj)) + dj * dy - cy
+        rx = ca * mx - sa * my
+        ry = sa * mx + ca * my
+        m = shift(rec.valid, di, dj)
+        rx = torch.where(m, rx, zero)
+        ry = torch.where(m, ry, zero)
+        if di == 0 and dj == 0:
+            x_eval = rx
+        w = m.to(cx.dtype)
+        P = [torch.ones_like(rx), rx, rx * rx]
+        for r in range(3):
+            for c in range(r, 3):
+                A[(r, c)] = A[(r, c)] + w * P[r] * P[c]
+            bvec[r] = bvec[r] + w * P[r] * ry
+
+    _, c1, c2 = solve3_cramer(A, bvec)
+    first = c1 + 2.0 * c2 * x_eval
+    curv = 2.0 * c2 / torch.pow(1.0 + first * first, 1.5)
+    curv = torch.where(torch.isfinite(curv), curv, zero)
+    curv = torch.where(t_valid, curv, zero)
+    return torch.nn.functional.pad(curv, (1, 1, 1, 1))
+
+
+N_SMOOTH = 4  # the smoothing kernel's half-width in cells
+
+
+def _smoothing_kernel(dx: float, dy: float) -> np.ndarray:
+    """w(r) = (1 - (r/L)^2)^4 on the (2n+1)^2 stencil, L = n max(dx, dy)."""
+    length = N_SMOOTH * max(dx, dy)
+    offs = np.arange(-N_SMOOTH, N_SMOOTH + 1)
+    KX, KY = np.meshgrid(offs * dx, offs * dy, indexing="ij")
+    q = (KX**2 + KY**2) / length**2
+    return np.where(q < 1.0, (1.0 - q) ** 4, 0.0)
+
+
+@functools.lru_cache(maxsize=16)
+def _cell_origins(grid: Grid, dtype: torch.dtype, device: torch.device):
+    """The lower-left corners' x and y of every cell of the ghost box, made
+    once per grid, dtype and device so that no step copies from the host."""
+    return (torch.as_tensor(grid.x[:-1], dtype=dtype, device=device),
+            torch.as_tensor(grid.y[:-1], dtype=dtype, device=device))
+
+
+def curvature_convolved_vf(vf_old: torch.Tensor, rec: Plic, grid: Grid,
+                           interpolate: bool = True) -> torch.Tensor:
+    """Convolved-vf curvature (Cummins, Francois and Kothe 2005): the
+    interior of vf smoothed with the compact kernel (neighbours beyond the
+    interior skipped), then kappa = -div(grad/|grad|) from centred
+    differences, bilinearly sampled at the segment midpoint (or at the
+    cell centre without ``interpolate``); 0 off the mixed cells."""
+    dx, dy = grid.dx, grid.dy
+    ker = _smoothing_kernel(dx, dy)
+    n = N_SMOOTH
+    padded = torch.nn.functional.pad(vf_old[1:-1, 1:-1], (n, n, n, n))
+    nx, ny = grid.nx, grid.ny
+    smooth = torch.zeros_like(vf_old[1:-1, 1:-1])
+    for a in range(2 * n + 1):
+        for b in range(2 * n + 1):
+            if ker[a, b] != 0.0:
+                smooth = smooth + float(ker[a, b]) * padded[a:a + nx, b:b + ny]
+    vf_smooth = torch.nn.functional.pad(smooth, (1, 1, 1, 1))
+
+    dvfdx, dvfdy = grad_centered(vf_smooth, dx, dy)
+    dxx, dxy = grad_centered(dvfdx, dx, dy)
+    _, dyy = grad_centered(dvfdy, dx, dy)
+    numer = dxx * dvfdy**2 + dyy * dvfdx**2 - 2.0 * dvfdx * dvfdy * dxy
+    denom = torch.pow(dvfdx**2 + dvfdy**2, 1.5)
+    zero = torch.zeros_like(denom)
+    curv_c = torch.where(torch.abs(denom) > 1e-8,
+                         -numer / torch.where(denom == 0.0, torch.ones_like(denom), denom), zero)
+    if not interpolate:
+        return torch.where(rec.valid, curv_c, zero)
+
+    x0, y0, x1, y1 = segment_endpoints(rec, dx, dy)
+    X0, Y0 = _cell_origins(grid, vf_old.dtype, vf_old.device)
+    mx = 0.5 * (x0 + x1) + X0[:, None]
+    my = 0.5 * (y0 + y1) + Y0[None, :]
+    sampled = sample_centered(curv_c, float(grid.xm[1]), dx, float(grid.ym[1]), dy, mx, my)
+    return torch.where(rec.valid, sampled, zero)

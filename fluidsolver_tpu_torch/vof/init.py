@@ -1,9 +1,10 @@
 """VOF field initialization by per-cell Gauss-Legendre quadrature: a
 torch-free copy of ``fluidsolver_tpu.vof.init`` (numpy, at set-up).
 
-``liquid_fraction_from_indicator`` evaluates the rule in bands of grid rows
-so that a 1024^2 grid (16 x 16 points per cell) does not hold ~270M points
-at once; each cell's arithmetic is that of the unbanded form.
+``liquid_fraction_from_indicator`` (and ``gauss_cell_average_banded``, which
+``ib/diffuse.py`` uses) evaluates the rule in bands of grid rows so that a
+1024^2 grid (16 x 16 points per cell) does not hold ~270M points at once;
+each cell's arithmetic is that of the unbanded form.
 """
 
 from __future__ import annotations
@@ -34,6 +35,16 @@ def gauss_cell_average(f, x_lo, x_hi, y_lo, y_hi, n: int = 16):
     return integral / ((x_hi - x_lo) * (y_hi - y_lo))[..., 0, 0]
 
 
+def gauss_cell_average_banded(f, x_lo, x_hi, y_lo, y_hi, n: int = 16) -> np.ndarray:
+    """``gauss_cell_average`` over 2D arrays of cell bounds of one shape,
+    ``ROWS_PER_BAND`` rows at a time."""
+    out = np.empty(np.shape(x_lo))
+    for r in range(0, out.shape[0], ROWS_PER_BAND):
+        band = slice(r, r + ROWS_PER_BAND)
+        out[band] = gauss_cell_average(f, x_lo[band], x_hi[band], y_lo[band], y_hi[band], n)
+    return out
+
+
 def liquid_fraction_from_indicator(indicator, grid: Grid, n: int = 16) -> np.ndarray:
     """Cell-averaged volume fractions over the FULL ghost box (ghost cells
     are initialized too), f64 of shape (nx+2, ny+2)."""
@@ -45,8 +56,4 @@ def liquid_fraction_from_indicator(indicator, grid: Grid, n: int = 16) -> np.nda
     def f(xs, ys):
         return np.asarray(indicator(xs, ys), dtype=np.float64)
 
-    out = np.empty(X_lo.shape)
-    for r in range(0, X_lo.shape[0], ROWS_PER_BAND):
-        band = slice(r, r + ROWS_PER_BAND)
-        out[band] = gauss_cell_average(f, X_lo[band], X_hi[band], Y_lo[band], Y_hi[band], n)
-    return out
+    return gauss_cell_average_banded(f, X_lo, X_hi, Y_lo, Y_hi, n)

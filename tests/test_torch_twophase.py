@@ -100,13 +100,6 @@ def test_fixed_runner_matches_run():
 
 
 @pytest.mark.parametrize("change", [
-    dict(surface_tension_method="tangent_force"),
-    dict(phase_change_mdot=0.1),
-    dict(curvature_method="regression"),
-    dict(curvature_method="convolved"),
-    dict(vof_max_active=0),
-    dict(vof_no_correction=True),
-    dict(vof_staggered_backtrace=True),
     dict(pressure_precond_refresh="never"),
     dict(pressure_precond_dtype="bfloat16"),
 ])

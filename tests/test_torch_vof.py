@@ -396,15 +396,6 @@ def test_advect_conserves_translated_circle():
     assert abs(float(vf.sum()) - mass0) * g.dx * g.dy <= 1e-12
 
 
-def test_advect_unsupported_variants_raise():
-    g, _, vf = vof_case(16, 16, noise=0.0)
-    Ut, Vt, Ui, Vi, dt_t, _ = advect_inputs(g, vf)
-    rec = plic.elvira(T(vf), g.dx, g.dy)
-    for kw in (dict(max_active=0), dict(no_correction=True), dict(staggered=True)):
-        with pytest.raises(ValueError):
-            advect.advect(T(vf), rec, Ut, Vt, Ui, Vi, g, dt_t, **kw)
-
-
 def test_kernel_modules_dispatch_by_device():
     """A CPU tensor runs the twin; a tensor on a device with no kernel
     raises instead of falling back."""
