@@ -87,7 +87,20 @@ result line):
   3d. the red-black sweep kernel (rb_sweep) against its twin at every level
      shape of the "mg" hierarchy of the 1026^2 and 1023 x 771 boxes, both
      orders, from a zero and a random x: f64 at the CPU tests' 1e-12, f32 at
-     the relative 1e-5 (bitwise logged); times at 1026^2;
+     the relative 1e-5 (bitwise logged); times at 1026^2; with --parent
+     DIR, the parent's rb_sweep torch.equal to this one's at every "mg"
+     level of the 1026^2 box (f32 and f64, both orders) and timed in turns,
+     and the parent's fused_smooth torch.equal in f64 too at the six
+     launches of one bench V-cycle;
+  3e. the bf16 forms (pressure_precond_dtype="bfloat16"): fused_smooth on
+     bf16 storage (f32 arithmetic) in its four forms at every level above
+     the coarsest of the bf16 BoxMG hierarchies of both boxes and at the
+     limits of its tiling (389 x 277 and 37 x 29 5-point, 195 x 139 and
+     12 x 10 9-point, V(1,1), V(2,2), the deepest halos, the sweep pair),
+     and rb_sweep in bf16 at every level of the bf16 "mg" hierarchies of
+     both boxes: each within one bf16 ulp of its twin (bitwise logged);
+     the bf16 V-cycle's launches timed beside the f32 kernel on the uncast
+     levels, rb_sweep bf16 beside f32 at 1026^2, with their bounds;
   4. lid_driven(n=256), f64, pressure_tol=1e-11, 3 steps: the GPU (kernels)
      against the CPU (twins);
   4b. the golden two-phase drop (64^2, 15 steps, f64, tol 1e-10): GPU
@@ -108,6 +121,11 @@ result line):
      curvature, the dense advection, no_correction and the staggered
      backtrace, and at ny=32 with the convolved curvature;
      expanding_bubble(n=32); the four IB channels and growing_ib at ny=16;
+  4f. GPU against CPU, f64, 3 steps, with pressure_precond_dtype=
+     "bfloat16": two_phase_channel(ny=16) on BoxMG and lid_driven(n=64) on
+     "mg" at tol 1e-11, held like 4e; two_phase_channel(ny=16) on "mg" at
+     its tol 1e-6, whose solves end unconverged (at the cap or stalled):
+     final fields to 1e-3, iter(p) to 2 a step;
   5. lid_driven(n=1024), f32, 20 steps: ms/step, PCG iterations, max |div|,
      host syncs per step, launch counts (the V-cycle and the PCG kernels),
      and the kernels seen by torch.profiler over make_step plus one step;
@@ -153,11 +171,25 @@ result line):
      hierarchy at make_step and none a step, no NaN, |U| deep in the solid
      below 0.15, max |div| below 1e-3 (growing_ib: less its source and
      the singular solve's constant, below 1e-3 of the source's scale); the
-     sharp channel with the linear weights is reported, not held.
+     sharp channel with the linear weights is reported, not held;
+  12. the bench configuration with pressure_precond_dtype="bfloat16", on
+     BoxMG for 20 steps and on "mg" for 10: phase 6's report, the exact
+     launches (no tail_cycle or tail_setup; fused_rap for every level above
+     the coarsest once a step; two bf16 fused_smooth launches a level a
+     V-cycle; the bf16 rb_sweep on every "mg" level), host syncs exactly
+     1 + p_iter + one a solve that ends before its cap, the solves at the
+     cap or on the stagnation window (none non-finite), peak memory, a
+     profiler split; the bf16 set-up (the f32 build, the cast and the
+     dense coarse inverse) must not drain the stream;
+  13. the DFG 2D-1 cases (diffuse, sharp quadratic, Luchini) at ny=448
+     (2403 x 448) through the driver, f32, 10 steps each, held as phase 11
+     with C_D, C_L and dp reported; immersed_interface(n=1024) with 1287
+     markers, 10 steps: no NaN, max|div| below 1e-3.
 The second-to-last line is a JSON object with one entry per kernel (the
 launches from phase 6, rb_sweep's from phase 7; overlap's quad variant
-under "n0_4", its launches from phase 9); the last line is
-{"ok": true, "device": {...}}.
+under "n0_4", its launches from phase 9; the bf16 forms of fused_smooth
+and rb_sweep under "bf16", their launches from phase 12); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -243,7 +275,8 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     """(least time in ms for these bytes and operations at the card's
     peaks, "bytes" or "operations")."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    # a bf16 kernel computes in f32: its operations count at the f32 peak
+    t_ops = flops / PEAK_FLOPS[torch.promote_types(dtype, torch.float32)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -868,20 +901,20 @@ def smooth_variants(tr, x0, ec, n_pre: int, n_post: int) -> dict:
             "ec": dict(x0=x0, colors=(False, True) * n_post, tr=tr, ec=ec)}
 
 
-def bench_smooth_launches(device) -> list:
+def bench_smooth_launches(device, dtype=torch.float32) -> list:
     """The six fused_smooth launches of one bench V(2,2) cycle: restrict and
-    ec on each level above the tail of the 1026^2 box (f32, the random jump
+    ec on each level above the tail of the 1026^2 box (the random jump
     operator and its Galerkin coarse operators): [(name, op, b, kw)]."""
     from fluidsolver_tpu_torch.poisson import cuda_rap
 
-    op = random_operator(1026, 1026, seed=13, dtype=torch.float32, device=device)
+    op = random_operator(1026, 1026, seed=13, dtype=dtype, device=device)
     out = []
     for level in range(above_tail_levels((1026, 1026))):
         tr, coarse = cuda_rap.fused_rap_twin(op)
         shape = tuple(op.aC.shape)
-        b = random_field(shape, 100 + level, torch.float32, device)
-        x0 = random_field(shape, 200 + level, torch.float32, device)
-        ec = random_field(tuple(tr.pW.shape), 300 + level, torch.float32, device)
+        b = random_field(shape, 100 + level, dtype, device)
+        x0 = random_field(shape, 200 + level, dtype, device)
+        ec = random_field(tuple(tr.pW.shape), 300 + level, dtype, device)
         for kind, kw in smooth_variants(tr, x0, ec, 2, 2).items():
             out.append((f"{kind} {shape[0]}x{shape[1]}", op, b, kw))
         op = coarse
@@ -2297,11 +2330,12 @@ def above_tail_levels(shape) -> int:
         shape = ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
 
 
-def drive_bench(device, g, cfg, vf0, n_steps: int):
+def drive_bench(device, g, cfg, vf0, n_steps: int, syncs_out=None):
     """``n_steps`` steps of the two-phase configuration ``cfg`` in f32 from
     the drop ``vf0``, each timed by CUDA events, with the launch counts set
     to 0 just before the first step and read just after the last. Returns
-    (step, state, launches, ms, p_iter, host syncs, VOF errors) per step."""
+    (step, state, launches, p_iter per step); the host syncs of each step
+    are appended to ``syncs_out`` if given."""
     from fluidsolver_tpu_torch.core import sync
     from fluidsolver_tpu_torch.ops import stencil
     from fluidsolver_tpu_torch.poisson import _kernels
@@ -2326,6 +2360,8 @@ def drive_bench(device, g, cfg, vf0, n_steps: int):
         iters.append(int(state.flow.p_iter))
         errs.append(float(state.vof_vol_error))
     launches = dict(_kernels.launches)
+    if syncs_out is not None:
+        syncs_out.extend(syncs)
 
     vf = state.vf[1:-1, 1:-1]
     finite = all(bool(torch.isfinite(t).all()) for t in
@@ -2422,7 +2458,6 @@ def mg_bench_phase(device, g, cfg, vf0) -> dict:
     the stagnation window; the residuals are read after the steps."""
     from fluidsolver_tpu_torch.poisson import mg
     from fluidsolver_tpu_torch.poisson.linsys import StencilOp
-    from fluidsolver_tpu_torch.solvers import incomp
 
     n_steps = 10
     meta = torch.empty(g.shape_center, device="meta")
@@ -2432,24 +2467,10 @@ def mg_bench_phase(device, g, cfg, vf0) -> dict:
         f"{sweeps} sweeps per V({cfg.mg_pre},{cfg.mg_post}) cycle")
 
     solves = []
-    solve = incomp.pressure_solve
-
-    def recording(*args, tol=None, **kw):
-        out = solve(*args, tol=tol, **kw)
-        solves.append((tol, out[2], out[1]))
-        return out
-
-    incomp.pressure_solve = recording
-    try:
+    with recorded_solves(solves):
         step, state, launches, iters = drive_bench(device, g, cfg, vf0, n_steps)
-        n_solves = len(solves)
-        capped = [(k, it, float(r)) for k, (tol, it, r) in enumerate(solves) if it >= cfg.pressure_max_iter]
-        stalled = [(k, it, float(r)) for k, (tol, it, r) in enumerate(solves)
-                   if it < cfg.pressure_max_iter and float(r) > tol]
-    finally:
-        incomp.pressure_solve = solve
-    log(f"  solves (index, iterations, p_res) at the cap of {cfg.pressure_max_iter}: {capped}")
-    log(f"  solves stopped above their tolerance (stagnation window): {stalled}")
+    n_solves = len(solves)
+    log_solve_exits(solves, cfg)
     require(n_solves == n_steps * cfg.num_subiter, f"{n_solves} pressure solves in {n_steps} steps")
     cycles = sum(iters) + n_solves
     expected = {"rb_sweep": cycles * sweeps, "elvira": n_steps, "curvature": n_steps, "overlap": n_steps,
@@ -2882,13 +2903,14 @@ def expanding_bubble_phase(device) -> None:
 
 
 # ---- phase 11 ------------------------------------------------------------------
-def ib_case_phase(device, label: str, name: str, kw: dict, ny: int, checked: bool = True) -> None:
+def ib_case_phase(device, label: str, name: str, kw: dict, ny: int, checked: bool = True) -> tuple:
     """One IB case through the driver, f32, 10 steps: the field set-up time
     (make_step, with the hierarchy), ms/step, p_iter, host syncs a step (the
     bare step's + 1), the launches of kernels 1-7 (fused_rap and tail_setup
     once at make_step, none a step), and, if ``checked``, no NaN, |U| deep
     in the solid below 0.15 and max|div| below 1e-3 (tests/test_ib.py); the
-    speed through the gap over the cylinder is logged."""
+    speed through the gap over the cylinder is logged. Returns the final
+    state and the case."""
     from fluidsolver_tpu_torch import driver
     from fluidsolver_tpu_torch.cases import get_case
     from fluidsolver_tpu_torch.core import sync
@@ -2971,7 +2993,7 @@ def ib_case_phase(device, label: str, name: str, kw: dict, ny: int, checked: boo
     log(f"    NaN in U: {nan}; max|U| deep in the solid {u_deep:.4e}; max|div| (growing_ib: less the source and "
         f"its mean {offset:.4e}, over the source's scale {div_scale:.4f}) {float(div.abs().max()) / div_scale:.3e}; "
         f"gap speed {u_gap:.4f}; t = {float(state.t):.6f}")
-    require(setup["launches"].get("tail_setup") == 1 and setup["launches"].get("fused_rap") == n_above,
+    require(setup["launches"].get("tail_setup") == 1 and setup["launches"].get("fused_rap", 0) == n_above,
             f"{label}: make_step must build one hierarchy (tail_setup once, fused_rap {n_above} times)")
     require(launches.get("fused_rap", 0) == 0 and launches.get("tail_setup", 0) == 0,
             f"{label}: a step must not rebuild the hierarchy")
@@ -2984,6 +3006,7 @@ def ib_case_phase(device, label: str, name: str, kw: dict, ny: int, checked: boo
         require(not nan, f"{label}: NaN in U")
         require(u_deep < 0.15, f"{label}: |U| deep in the solid {u_deep:.3e} >= 0.15")
         require(float(div.abs().max()) < 1e-3 * div_scale, f"{label}: max|div| >= 1e-3 of its scale")
+    return state, case
 
 
 def ib_phase(device) -> None:
@@ -2998,15 +3021,429 @@ def ib_phase(device) -> None:
     ib_case_phase(device, "sharp linear", "sharp_ib_channel", dict(scheme="linear"), 448, checked=False)
 
 
+# ---- phase 3e ------------------------------------------------------------------
+BF16_ULP = 2.0 ** -8
+
+
+def check_bf16(errors: Errors, name: str, got, want, main: bool, what: str, scale=None) -> bool:
+    """A bf16 kernel's outputs against its twin's: within one bf16 ulp,
+    2^-8 (|twin| + 1) elementwise, or 2^-8 of ``scale`` (a field's largest
+    value); returns whether they are bitwise equal. The largest error at
+    the main path's shapes goes into the kernels line as the bf16 form's."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want):
+        require(g.dtype == w.dtype == torch.bfloat16, f"{name} {what}: outputs {g.dtype}, {w.dtype}")
+        diff = (g.float() - w.float()).abs()
+        lim = BF16_ULP * (w.float().abs() + 1.0) if scale is None else torch.full_like(diff, BF16_ULP * scale)
+        worst = max(worst, float(diff.max()))
+        require(bool((diff <= lim).all()), f"{name} {what}: max|kernel - twin| = {float(diff.max()):.3e} "
+                f"exceeds one bf16 ulp")
+    if main:
+        errors.max_abs[name + "_bf16"] = max(errors.max_abs.get(name + "_bf16", 0.0), worst)
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def bf16_levels(shape, device) -> tuple:
+    """The f32 BoxMG levels of the random jump operator of ``shape`` built
+    without the tail, and the same hierarchy cast to bf16 (the bf16
+    preconditioner's, boxmg.cast_hierarchy)."""
+    from fluidsolver_tpu_torch.poisson import boxmg
+
+    levels32 = boxmg.build_hierarchy(random_operator(*shape, seed=13, dtype=torch.float32, device=device),
+                                     tail=False)
+    return levels32, boxmg.cast_hierarchy(levels32, torch.bfloat16)
+
+
+def smooth_forms(tr, x0, ec) -> dict:
+    """fused_smooth's four forms with V(2,2)'s half-steps."""
+    return {"plain": dict(x0=x0, colors=(False, True, False, True)),
+            "residual": dict(colors=(True, False, True, False), residual=True),
+            "restrict": dict(colors=(True, False, True, False), tr=tr, restrict=True),
+            "ec": dict(x0=x0, colors=(False, True, False, True), tr=tr, ec=ec)}
+
+
+def bf16_inputs(shape, coarse, seed: int, device) -> tuple:
+    bf = torch.bfloat16
+    return (random_field(shape, seed, torch.float32, device).to(bf),
+            random_field(shape, seed + 1, torch.float32, device).to(bf),
+            random_field(coarse, seed + 2, torch.float32, device).to(bf))
+
+
+def bf16_phase(device, errors: Errors) -> dict:
+    """Phase 3e: the bf16 forms of kernels #1 and #9 against their twins.
+    fused_smooth (bf16 storage, f32 arithmetic) in its four forms at every
+    level above the coarsest of the bf16 BoxMG hierarchies of the 1026^2
+    and 1023 x 771 boxes and at the limits of its tiling, within one bf16
+    ulp (bitwise expected); rb_sweep (every operation in bf16) at every
+    level of the bf16 "mg" hierarchies of both boxes, both orders, from a
+    zero and a random x, within one ulp of the level's largest value
+    (bitwise expected). Times: each level's two V-cycle launches in bf16
+    beside the f32 kernel on the uncast level, and rb_sweep bf16 beside f32
+    at 1026^2, each with its bound (the bf16 bytes, f32 operations).
+    Returns name -> (kernel ms, twin ms, bound ms, bound by) of the bf16
+    forms at the main path's shapes."""
+    from fluidsolver_tpu_torch.poisson import boxmg, cuda_rap, cuda_smoother, cuda_vcycle, mg
+
+    bf = torch.bfloat16
+    times = {}
+    for shape, main in (((1026, 1026), True), ((1023, 771), False)):
+        tag = f"bf16 {shape[0]}x{shape[1]}"
+        levels32, levels = bf16_levels(shape, device)
+        bitwise, rows = True, []
+        for lvl, (l32, level) in enumerate(zip(levels32, levels)):
+            if level.tr is None:
+                continue
+            lshape = tuple(level.op.aC.shape)
+            b, x0, ec = bf16_inputs(lshape, tuple(level.tr.pW.shape), 800 + 3 * lvl, device)
+            forms = smooth_forms(level.tr, x0, ec)
+            for fname, kw in forms.items():
+                got = cuda_vcycle.fused_smooth_cuda(level.op, b, **kw)
+                want = cuda_vcycle.fused_smooth_twin(level.op, b, **kw)
+                bitwise &= check_bf16(errors, "fused_smooth", got, want, main, f"{tag} level {lshape} {fname}")
+            if main:
+                # the V-cycle's two launches on this level, bf16 beside f32
+                b32, x032, ec32 = b.float(), x0.float(), ec.float()
+                for kind, kw16, kw32 in (("restrict", forms["restrict"], dict(forms["restrict"], tr=l32.tr)),
+                                         ("ec", forms["ec"], dict(forms["ec"], x0=x032, ec=ec32, tr=l32.tr))):
+                    t16 = time_ms(lambda: cuda_vcycle.fused_smooth_cuda(level.op, b, **kw16), 50, kernel=True)
+                    t32 = time_ms(lambda: cuda_vcycle.fused_smooth_cuda(l32.op, b32, **kw32), 50, kernel=True)
+                    rows.append((f"{kind} {lshape[0]}x{lshape[1]}", t16, t32, *smooth_bound(level.op, kw16)[:1],
+                                 smooth_bound(l32.op, kw32)[0]))
+                    if lvl == 0 and kind == "restrict":
+                        times["fused_smooth_bf16"] = (
+                            t16, time_ms(lambda: cuda_vcycle.fused_smooth_twin(level.op, b, **kw16), 10),
+                            *smooth_bound(level.op, kw16))
+        log(f"  {tag}: {len(levels)} levels {[tuple(lv.op.aC.shape) for lv in levels]}, the coarsest "
+            f"{'inverted densely' if levels[-1].coarse_inv is not None else 'swept'}: fused_smooth's four forms "
+            f"agree at every smoothed level, bitwise {bitwise}")
+        if rows:
+            log("  fused_smooth, one bf16 V(2,2) cycle's launches (device ms bf16 / f32 on the uncast level; "
+                "bound bf16 / f32): " + "; ".join(f"{n} {a:.4f} / {c:.4f} ({a / c:.3f}x; {bb:.4f} / {bf32:.4f})"
+                                                  for n, a, c, bb, bf32 in rows))
+            log(f"  fused_smooth, the cycle's {len(rows)} launches summed: bf16 {sum(r[1] for r in rows):.4f} ms, "
+                f"f32 {sum(r[2] for r in rows):.4f} ms ({sum(r[1] for r in rows) / sum(r[2] for r in rows):.3f}x)")
+        # rb_sweep on the bf16 "mg" hierarchy
+        op32 = random_operator(*shape, seed=13, dtype=torch.float32, device=device)
+        mg_levels = mg.build_hierarchy(boxmg.cast_struct(op32, bf))
+        bitwise_sw, worst = True, 0.0
+        for lvl, op in enumerate(mg_levels):
+            lshape = tuple(op.aC.shape)
+            b = random_field(lshape, 900 + lvl, torch.float32, device).to(bf)
+            for x0 in (torch.zeros_like(b), random_field(lshape, 950 + lvl, torch.float32, device).to(bf)):
+                for reverse in (False, True):
+                    got = cuda_smoother.rb_sweep_cuda(op, x0, b, reverse)
+                    want = cuda_smoother.rb_sweep_twin(op, x0, b, reverse)
+                    worst = max(worst, float((got.float() - want.float()).abs().max()))
+                    bitwise_sw &= check_bf16(errors, "rb_sweep", got, want, main,
+                                             f"{tag} mg level {lshape} reverse={reverse}",
+                                             scale=float(want.float().abs().max()))
+        log(f"  {tag}: rb_sweep on the {len(mg_levels)} bf16 'mg' levels (both orders, zero and random x): "
+            f"max|kernel - twin| {worst:.3e}, bitwise {bitwise_sw}")
+        if main:
+            op16, b16 = mg_levels[0], random_field(shape, 990, torch.float32, device).to(bf)
+            x16 = random_field(shape, 991, torch.float32, device).to(bf)
+            x32, b32 = x16.float(), b16.float()
+            n = b16.numel()
+            t16 = time_ms(lambda: cuda_smoother.rb_sweep_cuda(op16, x16, b16), 50, kernel=True)
+            t32 = time_ms(lambda: cuda_smoother.rb_sweep_cuda(op32, x32, b32), 50, kernel=True)
+            times["rb_sweep_bf16"] = (t16, time_ms(lambda: cuda_smoother.rb_sweep_twin(op16, x16, b16), 20),
+                                      *bound(8 * 2 * n, 13 * n, bf))
+            log(f"  rb_sweep 1026^2: bf16 {t16:.4f} ms, f32 {t32:.4f} ms ({t16 / t32:.3f}x); bound bf16 "
+                f"{times['rb_sweep_bf16'][2]:.4f}, f32 {bound(8 * 4 * n, 13 * n, torch.float32)[0]:.4f} ms")
+    # the limits of fused_smooth's tiling, in bf16
+    fine32 = random_operator(389, 277, seed=19, dtype=torch.float32, device=device)
+    small32 = random_operator(23, 19, seed=29, dtype=torch.float32, device=device)
+    limit_ops = (("389x277 5-point", fine32), ("195x139 9-point", cuda_rap.fused_rap_twin(fine32)[1]),
+                 ("37x29 5-point", random_operator(37, 29, seed=23, dtype=torch.float32, device=device)),
+                 ("12x10 9-point", cuda_rap.fused_rap_twin(small32)[1]))
+    for name, op32 in limit_ops:
+        tr32 = cuda_rap.fused_rap_twin(op32)[0]
+        op, tr = boxmg.cast_struct(op32, bf), boxmg.cast_struct(tr32, bf)
+        shape = tuple(op.aC.shape)
+        b, x0, ec = bf16_inputs(shape, tuple(tr.pW.shape), 410, device)
+        cases = {f"V(1,1) {k}": kw for k, kw in smooth_variants(tr, x0, ec, 1, 1).items()}
+        cases.update({f"V(2,2) {k}": kw for k, kw in smooth_forms(tr, x0, ec).items()})
+        cases.update({
+            "6 half-steps + restrict": dict(colors=(True, False) * 3, tr=tr, restrict=True),
+            "7 half-steps + residual": dict(x0=x0, colors=(False, True) * 3 + (False,), residual=True),
+            "8 half-steps ec": dict(x0=x0, colors=(False, True) * 4, tr=tr, ec=ec),
+            "sweep pair": dict(x0=x0, colors=(True, False, False, True)),
+        })
+        bitwise = True
+        for what, kw in cases.items():
+            got = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
+            want = cuda_vcycle.fused_smooth_twin(op, b, **kw)
+            bitwise &= check_bf16(errors, "fused_smooth", got, want, False, f"bf16 {name} {what}")
+        log(f"  bf16 {name}: fused_smooth agrees on {len(cases)} limit cases, bitwise {bitwise}")
+    return times
+
+
+def sweep_parent_phase(device, parent) -> None:
+    """With --parent: the parent's rb_sweep torch.equal to this commit's at
+    every "mg" level of the 1026^2 box, f32 and f64, both orders, from a
+    random x, and timed in turns at 1026^2 f32."""
+    from fluidsolver_tpu_torch.poisson import cuda_smoother, mg
+
+    plib = parent_lib(parent)
+    for dtype in (torch.float32, torch.float64):
+        levels = mg.build_hierarchy(random_operator(1026, 1026, seed=13, dtype=dtype, device=device))
+        for lvl, op in enumerate(levels):
+            lshape = tuple(op.aC.shape)
+            b, x0 = random_field(lshape, 500 + lvl, dtype, device), random_field(lshape, 600 + lvl, dtype, device)
+            for reverse in (False, True):
+                with kernel_library(plib):
+                    old = cuda_smoother.rb_sweep_cuda(op, x0, b, reverse)
+                new = cuda_smoother.rb_sweep_cuda(op, x0, b, reverse)
+                require(torch.equal(old, new), f"the parent's rb_sweep and this commit's differ at "
+                        f"{str(dtype)[6:]} level {lshape} reverse={reverse}")
+        log(f"  {str(dtype)[6:]}: the parent's rb_sweep torch.equal to this commit's at all {len(levels)} "
+            f"'mg' levels, both orders")
+    op = random_operator(1026, 1026, seed=13, dtype=torch.float32, device=device)
+    b, x0 = random_field((1026, 1026), 700, torch.float32, device), random_field((1026, 1026), 701,
+                                                                                  torch.float32, device)
+
+    def timed(lib):
+        with kernel_library(lib):
+            return time_ms(lambda: cuda_smoother.rb_sweep_cuda(op, x0, b), 50, kernel=True)
+
+    ms = [timed(lib) for lib in (plib, None, None, plib)]
+    log(f"  rb_sweep 1026^2 f32, device ms in turns: parent {ms[0]:.4f}, this {ms[1]:.4f}, this {ms[2]:.4f}, "
+        f"parent {ms[3]:.4f}; this / parent = {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}")
+
+
+def smooth_parent_f64(device, parent) -> None:
+    """With --parent: the parent's fused_smooth torch.equal to this
+    commit's in f64 at the six launches of one bench V-cycle (f32 is held
+    in smooth_report_phase)."""
+    from fluidsolver_tpu_torch.poisson import cuda_vcycle
+
+    plib = parent_lib(parent)
+    launches = bench_smooth_launches(device, torch.float64)
+    for name, op, b, kw in launches:
+        with kernel_library(plib):
+            old = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
+        new = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
+        old, new = (old if isinstance(old, tuple) else (old,)), (new if isinstance(new, tuple) else (new,))
+        require(all(torch.equal(o, w) for o, w in zip(old, new)),
+                f"the parent's fused_smooth and this commit's differ in f64 at {name}")
+    log(f"  f64: the parent's fused_smooth torch.equal to this commit's at all {len(launches)} launches")
+
+
+# ---- phase 4f ------------------------------------------------------------------
+def bf16_cross_check_phase(device) -> None:
+    """Phase 4f: GPU against CPU with pressure_precond_dtype="bfloat16", f64,
+    3 steps: two_phase_channel(ny=16) on BoxMG and lid_driven(n=64) on "mg",
+    both at tol 1e-11, held as phase 4e holds its cases
+    (cross_check_case); then two_phase_channel(ny=16) on "mg" at the case's
+    own tolerance (1e-6), where the bf16 "mg" cycle leaves the 1000:1
+    channel's solves at the cap of 50 iterations or stalled (the CPU tests
+    find the same in both packages). Unconverged, the two devices' runs
+    differ by what the bf16 rounding of residuals that differ in their last
+    f64 bits makes of 50 iterations: their final U, V, p and vf are held to
+    1e-3 of their largest values and iter(p) to 2 a step."""
+    from fluidsolver_tpu_torch import driver
+    from fluidsolver_tpu_torch.cases import get_case
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    for name, kw, solver, what in (("two_phase_channel", dict(ny=16), "boxmg", "fused_smooth_bf16"),
+                                   ("lid_driven", dict(n=64), "mg", "rb_sweep_bf16")):
+        case = get_case(name, **kw)
+        case.cfg = dataclasses.replace(case.cfg, pressure_precond_dtype="bfloat16", pressure_solver=solver)
+        _kernels.launches.clear()
+        cross_check_case(device, case, 3, f"{name}({next(iter(kw.values()))}) {solver} bf16")
+        require(_kernels.launches.get(what, 0) > 0 and _kernels.launches.get("tail_cycle", 0) == 0,
+                f"{name} {solver} bf16 must launch {what} and no tail_cycle")
+    case = get_case("two_phase_channel", ny=16)
+    case.cfg = dataclasses.replace(case.cfg, pressure_precond_dtype="bfloat16", pressure_solver="mg")
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        sim = driver.Simulation(case, dtype=torch.float64, device=dev, save_output=False,
+                                warn_nonconverged=False)
+        rows = driver_rows(sim, max_steps=3)
+        final = {k: getattr(sim.state.flow, k).cpu().numpy() for k in ("U", "V", "p")}
+        final["vf"] = sim.state.vf.cpu().numpy()
+        runs.append(([int(r["iter(p)"]) for r in rows[1:]], [r["res(p)"] for r in rows[1:]], final))
+    (g_it, g_res, g), (c_it, c_res, c) = runs
+    rels = {k: float(np.abs(g[k] - c[k]).max() / (np.abs(c[k]).max() or 1.0)) for k in g}
+    log(f"  two_phase_channel(16) mg bf16 at tol 1e-6: iter(p) per step gpu {g_it}, cpu {c_it}; res(p) gpu "
+        f"{['%.3e' % r for r in g_res]}, cpu {['%.3e' % r for r in c_res]}; final max|gpu - cpu| / max|cpu|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()))
+    require(all(abs(a - b) <= 2 for a, b in zip(g_it, c_it)), "iter(p) differs by more than 2 a step")
+    require(all(v <= 1e-3 for v in rels.values()), "mg bf16: a final field differs by more than 1e-3")
+
+
+# ---- phase 12 ------------------------------------------------------------------
+@contextlib.contextmanager
+def recorded_solves(log_to: list):
+    """Record every pressure solve's (tolerance, iterations, residual) while
+    the block runs; the residuals stay on the device until read."""
+    from fluidsolver_tpu_torch.solvers import incomp
+
+    solve = incomp.pressure_solve
+
+    def recording(*args, tol=None, **kw):
+        out = solve(*args, tol=tol, **kw)
+        log_to.append((tol, out[2], out[1]))
+        return out
+
+    incomp.pressure_solve = recording
+    try:
+        yield
+    finally:
+        incomp.pressure_solve = solve
+
+
+def log_solve_exits(solves: list, cfg) -> tuple:
+    """Log and return the solves that ended at the cap and those that ended
+    above their tolerance (the stagnation window)."""
+    capped = [(k, it, float(r)) for k, (tol, it, r) in enumerate(solves) if it >= cfg.pressure_max_iter]
+    stalled = [(k, it, float(r)) for k, (tol, it, r) in enumerate(solves)
+               if it < cfg.pressure_max_iter and float(r) > tol]
+    nonfinite = [k for k, (_, _, r) in enumerate(solves) if not math.isfinite(float(r))]
+    log(f"  solves (index, iterations, p_res) at the cap of {cfg.pressure_max_iter}: {capped}")
+    log(f"  solves stopped above their tolerance (stagnation window): {stalled}")
+    require(not nonfinite, f"solves with a non-finite residual: {nonfinite}")
+    return capped, stalled
+
+
+def bf16_bench_phase(device, g, cfg, vf0) -> dict:
+    """Phase 12: the bench configuration with pressure_precond_dtype=
+    "bfloat16", on BoxMG for 20 steps and on "mg" for 10: phase 6's report,
+    the solves at the cap or on the stagnation window, the peak device
+    memory, the exact launches (BoxMG: no tail_cycle or tail_setup, the
+    levels above the coarsest built by fused_rap once a step, two bf16
+    fused_smooth launches a level a V-cycle; "mg": the bf16 rb_sweep on
+    every level), the host syncs 1 + p_iter + one a solve that ends before
+    its cap, and a profiler split; the bf16 set-up (build, cast, dense
+    inverse) queued behind a device sleep must return with the stream still
+    busy (no host read). Returns the bf16 launches of both runs."""
+    from fluidsolver_tpu_torch.poisson import boxmg, linsys, mg
+    from fluidsolver_tpu_torch.solvers import incomp
+
+    # the set-up makes no host read: queued behind a device sleep, it
+    # returns while the stream is busy
+    rho = torch.ones(g.shape_u, device=device)
+    rho_v = torch.ones(g.shape_v, device=device)
+    cfg16 = dataclasses.replace(cfg, pressure_precond_dtype="bfloat16")
+    incomp.build_step_levels(rho, rho_v, g, cfg16)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    levels = incomp.build_step_levels(rho, rho_v, g, cfg16)
+    pending = not torch.cuda.current_stream(device).query()
+    torch.cuda.synchronize()
+    log(f"  BoxMG bf16 hierarchy: {len(levels)} levels {[lv.op.aC.shape[0] for lv in levels]}, coarsest inverse "
+        f"{tuple(levels[-1].coarse_inv.shape)} {levels[-1].coarse_inv.dtype}; the set-up queued behind a device "
+        f"sleep returned with the stream busy: {pending}")
+    require(pending, "the bf16 hierarchy's set-up drained the stream (a host read)")
+    n_smoothed = sum(lv.tr is not None for lv in levels)
+
+    out = {}
+    for solver, n_steps, kernels in (("boxmg", 20, tuple(k for k in BOXMG_STEP if not k.startswith("tail"))),
+                                     ("mg", 10, MG_STEP)):
+        log(f"  -- {solver} bf16, {n_steps} steps")
+        cfg_s = dataclasses.replace(cfg16, pressure_solver=solver)
+        solves, syncs = [], []
+        torch.cuda.reset_peak_memory_stats(device)
+        with recorded_solves(solves):
+            step, state, launches, iters = drive_bench(device, g, cfg_s, vf0, n_steps, syncs_out=syncs)
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        log_solve_exits(solves, cfg_s)
+        n_sub = cfg_s.num_subiter
+        n_solves = n_steps * n_sub
+        cycles = sum(iters) + n_solves
+        require(len(solves) == n_solves, f"{len(solves)} pressure solves in {n_steps} steps")
+        # dt > 0, one exit test an iteration, one more a solve that ends
+        # before its cap: the dense coarse inverse adds none
+        want_syncs = [1 + it + sum(s[1] < cfg_s.pressure_max_iter for s in solves[k * n_sub:(k + 1) * n_sub])
+                      for k, it in enumerate(iters)]
+        require(syncs == want_syncs, f"host syncs per step {syncs}, expected {want_syncs}")
+        expected = {"elvira": n_steps, "curvature": n_steps, "overlap": n_steps, "step_ab": sum(iters),
+                    "step_c": cycles, "step_init": n_solves, "fused_momentum": n_solves,
+                    "tail_cycle": 0, "tail_setup": 0}
+        if solver == "boxmg":
+            expected.update(fused_rap=n_smoothed * n_steps, fused_smooth=2 * n_smoothed * cycles,
+                            fused_smooth_bf16=2 * n_smoothed * cycles, rb_sweep=0)
+        else:
+            meta = mg.build_hierarchy(linsys.StencilOp(*(torch.empty(g.shape_center, device="meta"),) * 5))
+            sweeps = (len(meta) - 1) * (cfg.mg_pre + cfg.mg_post) + mg.COARSE_SWEEPS
+            expected.update(rb_sweep=cycles * sweeps, rb_sweep_bf16=cycles * sweeps, fused_rap=0,
+                            fused_smooth=0)
+        log(f"  expected launches: {expected}; peak device memory {peak:.3f} GiB; Σp_iter {sum(iters)}")
+        require(all(launches.get(k, 0) == v for k, v in expected.items()),
+                f"{solver} bf16: the launch counts differ from the expected ones")
+        out[solver] = launches.get("fused_smooth_bf16" if solver == "boxmg" else "rb_sweep_bf16", 0)
+        profile_bench(step, state, 3 if solver == "boxmg" else 2, kernels)
+    return out
+
+
+# ---- phase 13 ------------------------------------------------------------------
+DFG_CASES = (("diffuse", "diffuse_ib_dfg"), ("sharp quadratic", "sharp_ib_dfg"), ("luchini", "luchini_ib_dfg"))
+
+
+def dfg_phase(device) -> None:
+    """Phase 13: the three DFG 2D-1 cases at ny=448 (2403 x 448) through the
+    driver, f32, 10 steps each, held as phase 11 holds the IB channels (no
+    NaN, |U| deep in the solid below 0.15, max|div| below 1e-3), with C_D
+    (row-wise and surface), C_L and dp after the 10 steps; then
+    immersed_interface(n=1024) with 1287 markers (a spacing of about one
+    cell), 10 steps: set-up, ms/step, p_iter, no NaN, max|div| below 1e-3,
+    the markers' largest displacement."""
+    from fluidsolver_tpu_torch import driver
+    from fluidsolver_tpu_torch.cases import dfg, get_case
+    from fluidsolver_tpu_torch.ops import stencil
+
+    um = dfg.u_mean(1, 0.0)
+    for label, name in DFG_CASES:
+        state, case = ib_case_phase(device, label, name, {}, 448)
+        g = case.grid
+        vals = [dfg.calc_c_d_surface(state.p, state.U, state.V, g, um), dfg.calc_c_d(state.p, state.U, g, um),
+                dfg.calc_c_l_surface(state.p, state.U, state.V, g, um), dfg.calc_c_l(state.p, state.V, g, um),
+                dfg.calc_p_diff(state.p, g)]
+        cd_s, cd, cl_s, cl, dp = (float(v) for v in vals)
+        log(f"    after {float(state.t):.4f} s from rest: C_D surface {cd_s:.6f}, row-wise {cd:.6f}; C_L surface "
+            f"{cl_s:.6f}, column-wise {cl:.6f}; dp {dp:.6f}")
+        require(all(math.isfinite(v) for v in (cd_s, cd, cl_s, cl, dp)), f"{label}: a non-finite coefficient")
+
+    n_steps, n_markers = 10, 1287
+    case = get_case("immersed_interface", n=1024, n_markers=n_markers)
+    g = case.grid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = driver.Simulation(case, dtype=torch.float32, device=device, save_output=False)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    events, iters = [event()], []
+
+    def stash(state):
+        events.append(event())
+        iters.append(int(sim.observe()["iter(p)"]))
+
+    sim.run(max_steps=n_steps, callback=stash)
+    ms = step_ms(events)
+    fl, m = sim.state.flow, sim.state.markers
+    div = stencil.divergence(fl.U, fl.V, g.dx, g.dy)[1:-1, 1:-1]
+    nan = not all(bool(torch.isfinite(t).all()) for t in (fl.U, fl.V, fl.p, m.x, m.y))
+    disp = float(torch.max(torch.hypot(m.x - m.x0, m.y - m.y0)))
+    log(f"  immersed_interface(n=1024, {n_markers} markers, spacing {2 * math.pi * 0.2 / n_markers / g.dx:.3f} "
+        f"cells): set-up {setup:.3f} s; ms/step (CUDA events; median of steps 2-{sim.n_steps}) "
+        f"{statistics.median(ms[1:]):.4f}, all steps {[round(v, 3) for v in ms]}; p_iter (cumulative) {iters}; "
+        f"max|div| {float(div.abs().max()):.3e}; largest marker displacement {disp:.4e}; NaN {nan}; "
+        f"t = {float(fl.t):.6f}")
+    require(sim.n_steps == n_steps, f"immersed_interface: {sim.n_steps} steps")
+    require(not nan, "immersed_interface: a non-finite field or marker")
+    require(float(div.abs().max()) < 1e-3, "immersed_interface: max|div| >= 1e-3")
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one H100.")
     ap.add_argument("--parent", default=None,
                     help="a checkout of another commit: also hold its fused_rap, tail_setup, fused_smooth, "
-                         "elvira, curvature, overlap, step_ab, step_c and step_init bitwise to this one's and time "
-                         "them and its "
-                         "tail_cycle against this one's (phases 3, 3b, 3c)")
+                         "elvira, curvature, overlap, step_ab, step_c, step_init and rb_sweep bitwise to this "
+                         "one's and time them and its tail_cycle against this one's (phases 3-3d)")
     parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3067,6 +3504,12 @@ def main(argv=None) -> int:
         phase = "3d rb_sweep vs twin"
         log("phase 3d: the red-black sweep kernel against its twin on the card")
         times.update(sweep_phase(device, errors))
+        if parent is not None:
+            sweep_parent_phase(device, parent)
+            smooth_parent_f64(device, parent)
+        phase = "3e bf16 kernels vs twins"
+        log("phase 3e: the bf16 forms of fused_smooth and rb_sweep against their twins on the card")
+        times.update(bf16_phase(device, errors))
         for k, (tk, tt, tb, by) in times.items():
             log(f"  {k}: kernel {tk:.4f} ms, twin {tt:.4f} ms, bound {tb:.4f} ms ({by}) "
                 "(f32, main-path shape)")
@@ -3088,6 +3531,10 @@ def main(argv=None) -> int:
         log("phase 4e: the two-phase options, expanding_bubble(32) and the IB cases at ny=16, f64 tol 1e-11, "
             "3 steps each, GPU vs CPU")
         options_cross_check_phase(device)
+        phase = "4f bf16 cross-check"
+        log('phase 4f: pressure_precond_dtype="bfloat16", f64, 3 steps, GPU vs CPU: two_phase_channel(16) on '
+            'BoxMG and "mg", lid_driven(64) on "mg"')
+        bf16_cross_check_phase(device)
 
         phase = "5 full size"
         log("phase 5: lid_driven(1024) f32, 20 steps on the card")
@@ -3118,6 +3565,14 @@ def main(argv=None) -> int:
         phase = "11 immersed boundaries"
         log("phase 11: the IB cases at the bench's cell count through the driver, f32, 10 steps each")
         ib_phase(device)
+        phase = "12 bench bf16"
+        log('phase 12: the bench configuration with pressure_precond_dtype="bfloat16", 1024^2 f32, BoxMG 20 '
+            'steps and "mg" 10 steps')
+        bf16_launches = bf16_bench_phase(device, g_bench, cfg_bench, vf_bench)
+        phase = "13 DFG and immersed interface"
+        log("phase 13: the DFG cases at 2403 x 448 and immersed_interface(1024) through the driver, f32, "
+            "10 steps each")
+        dfg_phase(device)
     except Exception as exc:  # report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         import traceback
@@ -3135,6 +3590,13 @@ def main(argv=None) -> int:
     quad = times["overlap_n0_4"]
     next(k for k in kernels if k["name"] == "overlap")["n0_4"] = {
         "launches": quad_launches, "ms": quad[0], "plain_ms": quad[1], "bound_ms": quad[2], "bound_by": quad[3]}
+    # the bf16 forms of #1 and #9: their launches on phase 12's BoxMG and
+    # "mg" runs, their times at 1026^2 (phase 3e)
+    for k, run in (("fused_smooth", "boxmg"), ("rb_sweep", "mg")):
+        t = times[k + "_bf16"]
+        next(e for e in kernels if e["name"] == k)["bf16"] = {
+            "launches": bf16_launches[run], "max_abs_err": errors.max_abs[k + "_bf16"], "ms": t[0],
+            "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

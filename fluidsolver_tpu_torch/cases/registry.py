@@ -8,7 +8,8 @@ condition; ``make_state(dtype, device)`` builds the initial state (a
 ``step_builder`` where it has one (``vof_tgv``, the kinematic VOF step),
 else the incompressible step (with the IB fields of ``ib_builder``) or the
 two-phase step. ``cases/sources.py`` adds the growing solid and the
-expanding bubble. Not ported: the DFG cases and the immersed interface.
+expanding bubble, ``cases/dfg.py`` the three DFG cylinder cases and
+``cases/immersed_interface.py`` the marker ring.
 """
 
 from __future__ import annotations

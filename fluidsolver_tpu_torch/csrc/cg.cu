@@ -700,6 +700,7 @@ int init(const void* const* op, const void* b, const void* x0, int singular, int
 extern "C" int fs_step_ab(int dtype, const void* const* op, const void* x, const void* r,
                           const void* p, const void* rz, int N, int M, void* x_out, void* r_out,
                           void* Ap, void* part, void* scal, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   (void)Ap;
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::ab<float>(op, x, r, p, rz, N, M, x_out, r_out, part, scal, s)
@@ -712,6 +713,7 @@ extern "C" int fs_step_ab(int dtype, const void* const* op, const void* x, const
 extern "C" int fs_step_c(int dtype, const void* r, const void* z_raw, const void* p,
                          const void* rz_prev, const void* sum_r, int singular, long long n,
                          void* z_out, void* p_out, void* part, void* scal, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0
       ? fs::c<float>(r, z_raw, p, rz_prev, sum_r, singular, n, z_out, p_out, part, scal, s)
@@ -724,6 +726,7 @@ extern "C" int fs_step_c(int dtype, const void* r, const void* z_raw, const void
 extern "C" int fs_step_init(int dtype, const void* const* op, const void* b, const void* x0,
                             int singular, int N, int M, void* x_out, void* r_out, void* part,
                             void* scal, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::init<float>(op, b, x0, singular, N, M, x_out, r_out, part, scal, s)
                     : fs::init<double>(op, b, x0, singular, N, M, x_out, r_out, part, scal, s);

@@ -184,6 +184,7 @@ int launch(const void* nx, const void* ny, const void* d, const void* valid, int
 extern "C" int fs_curvature(int dtype, const void* nx, const void* ny, const void* d,
                             const void* valid, int N, int M, double dx, double dy, void* out,
                             void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::launch<float, true>(nx, ny, d, valid, N, M, dx, dy, out, s)
                     : fs::launch<double, true>(nx, ny, d, valid, N, M, dx, dy, out, s);
@@ -195,6 +196,7 @@ extern "C" int fs_curvature(int dtype, const void* nx, const void* ny, const voi
 extern "C" int fs_curvature_fill_probe(int dtype, const void* nx, const void* ny, const void* d,
                                        const void* valid, int N, int M, double dx, double dy,
                                        void* out, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::launch<float, false>(nx, ny, d, valid, N, M, dx, dy, out, s)
                     : fs::launch<double, false>(nx, ny, d, valid, N, M, dx, dy, out, s);

@@ -192,6 +192,7 @@ int launch(const void* vf, int N, int M, double dx, double dy, double lo, double
 // dtype 0 = float, 1 = double. Returns a cudaError_t (0 = launched).
 extern "C" int fs_elvira(int dtype, const void* vf, int N, int M, double dx, double dy,
                          double lo, double hi, void* out, void* valid, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::launch<float, true>(vf, N, M, dx, dy, lo, hi, out, valid, s)
                     : fs::launch<double, true>(vf, N, M, dx, dy, lo, hi, out, valid, s);
@@ -202,6 +203,7 @@ extern "C" int fs_elvira(int dtype, const void* vf, int N, int M, double dx, dou
 // kernel's memory floor).
 extern "C" int fs_elvira_fill_probe(int dtype, const void* vf, int N, int M, double dx, double dy,
                                     double lo, double hi, void* out, void* valid, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::launch<float, false>(vf, N, M, dx, dy, lo, hi, out, valid, s)
                     : fs::launch<double, false>(vf, N, M, dx, dy, lo, hi, out, valid, s);

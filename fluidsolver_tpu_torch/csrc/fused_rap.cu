@@ -246,6 +246,7 @@ int launch(int ncoef, const void* const* op, int N, int M, void* const* out,
 // Returns a cudaError_t (0 = launched).
 extern "C" int fs_fused_rap(int dtype, int ncoef, const void* const* op, int N, int M,
                             void* const* out, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::launch<float>(ncoef, op, N, M, out, s)
                     : fs::launch<double>(ncoef, op, N, M, out, s);

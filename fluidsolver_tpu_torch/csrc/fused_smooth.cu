@@ -41,8 +41,20 @@
 // restrict_at, prolong_at) in the twin's operand order, compiled with
 // --fmad=false and with the true division, so the result is the twin's to
 // the last bit.
+//
+// bf16 storage (dtype 2), the TPU kernel's contract for a bf16 hierarchy
+// (pallas_vcycle.py:118-125): the kernel is templated on a storage type S
+// and a compute type T. The bf16 instantiation loads bf16 and widens it to
+// float, keeps the coefficients, the shared iterate and the residual in
+// float across the half-steps, and rounds once, to nearest even, on the
+// store of x and of r (the coarse r of the restriction form). Its bytes are
+// half the float kernel's; its registers and shared memory are the float
+// kernel's, so it takes the float kernel's block shapes. The restriction's
+// weights are loaded directly (cp.async copies 4 bytes at least). The float
+// and double instantiations (S = T) compile to what they were.
 #include <cuda_pipeline.h>
 
+#include "bf16.cuh"
 #include "boxmg_device.cuh"
 
 namespace fs {
@@ -52,15 +64,16 @@ constexpr int kMaxHalo = 8;
 
 enum Mode { kPlain = 0, kResidual = 1, kRestrict = 2 };
 
-template <typename T>
+// operands in the storage type S
+template <typename S>
 struct SmoothArgs {
-  Level<T> op;
-  const T* b;
-  const T* x0;        // null: start from zero
-  WeightPlanes<T> tr; // restriction / prolongation weights
-  const T* ec;        // coarse error for the prologue, or null
-  T* x_out;           // (N, M)
-  T* r_out;           // residual (N, M) or restricted residual (Nc, Mc)
+  Level<S> op;
+  const S* b;
+  const S* x0;        // null: start from zero
+  WeightPlanes<S> tr; // restriction / prolongation weights
+  const S* ec;        // coarse error for the prologue, or null
+  S* x_out;           // (N, M)
+  S* r_out;           // residual (N, M) or restricted residual (Nc, Mc)
   unsigned colors;    // bit s set: half-step s updates red points
   int n_colors;
   int halo;
@@ -73,8 +86,15 @@ struct Points {
   T b[P];
 };
 
-template <typename T, int NC, int MODE, bool EC, int BX, int BY, int P, int MINB>
-__global__ void __launch_bounds__(BX * BY, MINB) fused_smooth_kernel(SmoothArgs<T> A) {
+// p[(i, j)] widened to the compute type, zero outside the (N, M) grid
+template <typename S>
+__device__ __forceinline__ typename Compute<S>::type ldw(const S* p, int i, int j, int N, int M) {
+  using T = typename Compute<S>::type;
+  return (i >= 0 && i < N && j >= 0 && j < M) ? widen(p[(size_t)i * M + j]) : T(0);
+}
+
+template <typename S, typename T, int NC, int MODE, bool EC, int BX, int BY, int P, int MINB>
+__global__ void __launch_bounds__(BX * BY, MINB) fused_smooth_kernel(SmoothArgs<S> A) {
   constexpr int NT = BX * BY, RJ = 2 * BX, RI = BY * P;
   constexpr int KQ = (P + 1) / 2;   // coarse rows a thread restricts
   static_assert(P <= 4, "lims packs 2 P limits of 4 bits into 32 bits");
@@ -116,8 +136,11 @@ __global__ void __launch_bounds__(BX * BY, MINB) fused_smooth_kernel(SmoothArgs<
     const int Nc = A.tr.Nc, Mc = A.tr.Mc;
     auto copy = [&](int q, int w, int k, int l) {
       const bool in = k >= 0 && k < Nc && l >= 0 && l < Mc;
-      __pipeline_memcpy_async(&ws[(q * 8 + w) * NT + tid], A.tr.w[w] + (in ? (size_t)k * Mc + l : 0), sizeof(T),
-                              in ? 0 : sizeof(T));
+      if constexpr (sizeof(S) == sizeof(T))
+        __pipeline_memcpy_async(&ws[(q * 8 + w) * NT + tid], A.tr.w[w] + (in ? (size_t)k * Mc + l : 0),
+                                sizeof(T), in ? 0 : sizeof(T));
+      else
+        ws[(q * 8 + w) * NT + tid] = ldw(A.tr.w[w], k, l, Nc, Mc);
     };
 #pragma unroll
     for (int q = 0; q < KQ; ++q) {
@@ -144,12 +167,13 @@ __global__ void __launch_bounds__(BX * BY, MINB) fused_smooth_kernel(SmoothArgs<
       const int rj = 2 * tx + c;
       T v = T(0);
       if (in_level(ri, rj)) {
-        if (A.x0) v = __ldg(A.x0 + offset(ri, rj));
+        if (A.x0) v = widen(__ldg(A.x0 + offset(ri, rj)));
         if (EC) {
           const int Nc = A.tr.Nc, Mc = A.tr.Mc;
-          const T* ec = A.ec;
-          auto E = [&](int k, int l) { return ld(ec, k, l, Nc, Mc); };
-          v = v + prolong_at<T>(gi0 + ri, gj0 + rj, E, A.tr);
+          const S* ec = A.ec;
+          auto E = [&](int k, int l) { return ldw(ec, k, l, Nc, Mc); };
+          auto W = [&](int q, int k, int l) { return ldw(A.tr.w[q], k, l, Nc, Mc); };
+          v = v + prolong_at<T>(gi0 + ri, gj0 + rj, E, W);
         }
       }
       X(ri, rj) = v;
@@ -178,8 +202,8 @@ __global__ void __launch_bounds__(BX * BY, MINB) fused_smooth_kernel(SmoothArgs<
       const bool used = l > 1;
       const size_t o = used ? offset(ri, rj) : 0;
 #pragma unroll
-      for (int k = 0; k < NC; ++k) pt.a[p][k] = used ? __ldg(A.op.a[k] + o) : T(0);
-      pt.b[p] = used ? __ldg(A.b + o) : T(0);
+      for (int k = 0; k < NC; ++k) pt.a[p][k] = used ? widen(__ldg(A.op.a[k] + o)) : T(0);
+      pt.b[p] = used ? widen(__ldg(A.b + o)) : T(0);
     }
   }
   __syncthreads();
@@ -239,8 +263,8 @@ __global__ void __launch_bounds__(BX * BY, MINB) fused_smooth_kernel(SmoothArgs<
       if (MODE == kRestrict) rs[&Xn(0, 0) - xs] = r;
       if (l == H + 1) {
         const size_t o = offset(row(p), 2 * tx + c);
-        A.x_out[o] = Xn(0, 0);
-        if (MODE == kResidual) A.r_out[o] = r;
+        put(A.x_out + o, Xn(0, 0));
+        if (MODE == kResidual) put(A.r_out + o, r);
       }
     }
   }
@@ -258,28 +282,29 @@ __global__ void __launch_bounds__(BX * BY, MINB) fused_smooth_kernel(SmoothArgs<
     for (int q = 0; q < KQ; ++q) {
       const int kk = ty + BY * q, k = ti0 / 2 + kk;
       if (kk < TI / 2 && k < A.tr.Nc)
-        A.r_out[(size_t)k * A.tr.Mc + l_c] =
-            restrict_at<T>(k, l_c, Rs, [&](int w, int, int) { return ws[(8 * q + w) * NT + tid]; });
+        put(A.r_out + (size_t)k * A.tr.Mc + l_c,
+            restrict_at<T>(k, l_c, Rs, [&](int w, int, int) { return ws[(8 * q + w) * NT + tid]; }));
     }
   }
 }
 
 // one launch with a BX x BY thread block over a region of (BY * P) x
 // (2 * BX) points, at least MINB blocks resident on an SM
-template <typename T, int NC, int MODE, bool EC, int BX, int BY, int P, int MINB>
-cudaError_t launch_kernel(const SmoothArgs<T>& a, cudaStream_t s) {
+template <typename S, int NC, int MODE, bool EC, int BX, int BY, int P, int MINB>
+cudaError_t launch_kernel(const SmoothArgs<S>& a, cudaStream_t s) {
+  using T = typename Compute<S>::type;
   const int TI = BY * P - 2 * a.halo, TJ = 2 * BX - 2 * a.halo;
   const dim3 grid((a.op.M + TJ - 1) / TJ, (a.op.N + TI - 1) / TI), block(BX, BY);
-  fused_smooth_kernel<T, NC, MODE, EC, BX, BY, P, MINB><<<grid, block, 0, s>>>(a);
+  fused_smooth_kernel<S, T, NC, MODE, EC, BX, BY, P, MINB><<<grid, block, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int NC, int BX, int BY, int P, int MINB>
-cudaError_t launch_shape(const SmoothArgs<T>& a, int mode, cudaStream_t s) {
-  if (mode == kPlain && !a.ec) return launch_kernel<T, NC, kPlain, false, BX, BY, P, MINB>(a, s);
-  if (mode == kPlain) return launch_kernel<T, NC, kPlain, true, BX, BY, P, MINB>(a, s);
-  if (mode == kResidual) return launch_kernel<T, NC, kResidual, false, BX, BY, P, MINB>(a, s);
-  return launch_kernel<T, NC, kRestrict, false, BX, BY, P, MINB>(a, s);
+template <typename S, int NC, int BX, int BY, int P, int MINB>
+cudaError_t launch_shape(const SmoothArgs<S>& a, int mode, cudaStream_t s) {
+  if (mode == kPlain && !a.ec) return launch_kernel<S, NC, kPlain, false, BX, BY, P, MINB>(a, s);
+  if (mode == kPlain) return launch_kernel<S, NC, kPlain, true, BX, BY, P, MINB>(a, s);
+  if (mode == kResidual) return launch_kernel<S, NC, kResidual, false, BX, BY, P, MINB>(a, s);
+  return launch_kernel<S, NC, kRestrict, false, BX, BY, P, MINB>(a, s);
 }
 
 // levels of at least this many points are "large" (the bench's 1026^2; its
@@ -295,42 +320,43 @@ constexpr long kLargeLevel = 600L * 600;
 // level: the restriction phase takes the 512-thread shape, the others 256
 // threads over a 32 x 32 region (more, smaller blocks for the 132 SMs).
 // f64 always takes the 32 x 32 region (its registers and shared memory are
-// twice f32's).
-template <typename T, int NC>
-cudaError_t dispatch(const SmoothArgs<T>& a, int mode, cudaStream_t s) {
-  if constexpr (sizeof(T) == 4) {
+// twice f32's). bf16 storage computes in float, so it takes f32's shapes
+// (same registers and shared memory).
+template <typename S, int NC>
+cudaError_t dispatch(const SmoothArgs<S>& a, int mode, cudaStream_t s) {
+  if constexpr (sizeof(typename Compute<S>::type) == 4) {
     const bool large = (long)a.op.N * a.op.M >= kLargeLevel;
-    if (large && mode == kRestrict) return launch_kernel<T, NC, kRestrict, false, 32, 8, 4, 2>(a, s);
-    if (large || mode == kRestrict) return launch_shape<T, NC, 32, 16, 2, 1>(a, mode, s);
+    if (large && mode == kRestrict) return launch_kernel<S, NC, kRestrict, false, 32, 8, 4, 2>(a, s);
+    if (large || mode == kRestrict) return launch_shape<S, NC, 32, 16, 2, 1>(a, mode, s);
   }
-  return launch_shape<T, NC, 16, 16, 2, 1>(a, mode, s);
+  return launch_shape<S, NC, 16, 16, 2, 1>(a, mode, s);
 }
 
-template <typename T>
+template <typename S>
 int launch(int ncoef, const void* const* op, const void* b, const void* x0,
            const void* const* tr, const void* ec, int Nc, int Mc, void* x_out,
            void* r_out, int N, int M, unsigned colors, int n_colors, int mode,
            cudaStream_t stream) {
-  SmoothArgs<T> a{};
-  for (int k = 0; k < ncoef; ++k) a.op.a[k] = static_cast<const T*>(op[k]);
+  SmoothArgs<S> a{};
+  for (int k = 0; k < ncoef; ++k) a.op.a[k] = static_cast<const S*>(op[k]);
   a.op.N = N;
   a.op.M = M;
-  a.b = static_cast<const T*>(b);
-  a.x0 = static_cast<const T*>(x0);
+  a.b = static_cast<const S*>(b);
+  a.x0 = static_cast<const S*>(x0);
   if (tr)
-    for (int q = 0; q < 8; ++q) a.tr.w[q] = static_cast<const T*>(tr[q]);
+    for (int q = 0; q < 8; ++q) a.tr.w[q] = static_cast<const S*>(tr[q]);
   a.tr.Nc = Nc;
   a.tr.Mc = Mc;
-  a.ec = static_cast<const T*>(ec);
-  a.x_out = static_cast<T*>(x_out);
-  a.r_out = static_cast<T*>(r_out);
+  a.ec = static_cast<const S*>(ec);
+  a.x_out = static_cast<S*>(x_out);
+  a.r_out = static_cast<S*>(r_out);
   a.colors = colors;
   a.n_colors = n_colors;
   a.halo = n_colors + (mode == kRestrict ? 2 : mode == kResidual ? 1 : 0);
   if (a.halo > kMaxHalo || (ec && mode != kPlain) || (mode == kRestrict && !tr) ||
       (ec && !tr) || (mode != kPlain && !r_out) || (ncoef != 5 && ncoef != 9))
     return cudaErrorInvalidValue;
-  return ncoef == 5 ? dispatch<T, 5>(a, mode, stream) : dispatch<T, 9>(a, mode, stream);
+  return ncoef == 5 ? dispatch<S, 5>(a, mode, stream) : dispatch<S, 9>(a, mode, stream);
 }
 
 }  // namespace
@@ -341,15 +367,24 @@ int launch(int ncoef, const void* const* op, const void* b, const void* x0,
 // mode 0: x only (with the ec prologue if ec is given); 1: also r_out =
 // b - A x (N, M); 2: also r_out = P^T (b - A x) (Nc, Mc). Half-step s
 // updates red points ((i + j) even) if bit s of colors is set, else black.
-// dtype 0 = float, 1 = double. Returns a cudaError_t (0 = launched).
+// dtype 0 = float, 1 = double, 2 = bf16 storage with float arithmetic.
+// Returns a cudaError_t (0 = launched).
 extern "C" int fs_fused_smooth(int dtype, int ncoef, const void* const* op, const void* b,
                                const void* x0, const void* const* tr, const void* ec,
                                int Nc, int Mc, void* x_out, void* r_out, int N, int M,
                                unsigned colors, int n_colors, int mode, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-      ? fs::launch<float>(ncoef, op, b, x0, tr, ec, Nc, Mc, x_out, r_out, N, M, colors,
-                          n_colors, mode, s)
-      : fs::launch<double>(ncoef, op, b, x0, tr, ec, Nc, Mc, x_out, r_out, N, M, colors,
-                           n_colors, mode, s);
+  switch (dtype) {
+    case 0:
+      return fs::launch<float>(ncoef, op, b, x0, tr, ec, Nc, Mc, x_out, r_out, N, M, colors,
+                               n_colors, mode, s);
+    case 1:
+      return fs::launch<double>(ncoef, op, b, x0, tr, ec, Nc, Mc, x_out, r_out, N, M, colors,
+                                n_colors, mode, s);
+    case 2:
+      return fs::launch<__nv_bfloat16>(ncoef, op, b, x0, tr, ec, Nc, Mc, x_out, r_out, N, M,
+                                       colors, n_colors, mode, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -201,6 +201,7 @@ int launch(const void* const* in, const void* dt, void* const* out, int Nc, int 
 extern "C" int fs_fused_momentum(int dtype, const void* const* in, const void* dt,
                                  void* const* out, int Nc, int M, double dx, double dy,
                                  double rho_eps, double gx, double gy, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::launch<float>(in, dt, out, Nc, M, dx, dy, rho_eps, gx, gy, s)
                     : fs::launch<double>(in, dt, out, Nc, M, dx, dy, rho_eps, gx, gy, s);

@@ -309,6 +309,7 @@ int dispatch(int dtype, const void* sx, const void* sy, const void* li, const vo
              const void* vf, const void* valid, const void* nx, const void* ny, const void* d,
              int M, int m, double dx, double dy, double lo, void* overlap, void* area,
              void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? launch<float, 16, kStage, kStart>(sx, sy, li, lj, vf, valid, nx, ny, d, M, m, dx, dy, lo,

@@ -23,6 +23,15 @@
 // operand order of the plain version (boxmg_device.cuh's gs_value: A x -
 // aC x, then (b - that) / aC as a true division) and the library is built
 // with --fmad=false, so the kernel rounds like the plain PyTorch version.
+//
+// bf16 (dtype 2): the TPU kernel computes in its operands' dtype, and so
+// does the plain version chained on bf16 tensors, rounding after every
+// operation. The bf16 instantiation runs the same code on bf16r
+// (bf16.cuh), whose every operation is computed in float and rounded to
+// nearest even, as PyTorch's bf16 operations are: it is expected to equal
+// the plain version bit for bit. The float and double instantiations are
+// unchanged.
+#include "bf16.cuh"
 #include "boxmg_device.cuh"
 
 namespace fs {
@@ -92,10 +101,15 @@ int launch(const void* const* op, const void* b, const void* x, void* x_out, int
 
 // One red-black sweep. op: 5 planes (aC, aL, aR, aB, aT), b, x, x_out: all
 // (N, M); red_first != 0 updates red ((i + j) even) then black, else black
-// then red. dtype 0 = float, 1 = double. Returns a cudaError_t (0 = launched).
+// then red. dtype 0 = float, 1 = double, 2 = bf16 (every operation rounded
+// to bf16). Returns a cudaError_t (0 = launched).
 extern "C" int fs_rb_sweep(int dtype, const void* const* op, const void* b, const void* x,
                            void* x_out, int N, int M, int red_first, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? fs::launch<float>(op, b, x, x_out, N, M, red_first, s)
-                    : fs::launch<double>(op, b, x, x_out, N, M, red_first, s);
+  switch (dtype) {
+    case 0: return fs::launch<float>(op, b, x, x_out, N, M, red_first, s);
+    case 1: return fs::launch<double>(op, b, x, x_out, N, M, red_first, s);
+    case 2: return fs::launch<fs::bf16r>(op, b, x, x_out, N, M, red_first, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

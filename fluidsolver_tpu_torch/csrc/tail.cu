@@ -700,6 +700,7 @@ __global__ void __launch_bounds__(kThreads) sync_probe_kernel(int n_syncs, int n
 // 17 * Nc_d * Mc_d elements. dtype 0 = float, 1 = double.
 extern "C" int fs_tail_setup(int dtype, int ncoef0, const void* const* op0, int N, int M,
                              int n_levels, void* buf, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? fs::setup<float>(ncoef0, op0, N, M, n_levels, buf, s)
                     : fs::setup<double>(ncoef0, op0, N, M, n_levels, buf, s);
@@ -710,6 +711,7 @@ extern "C" int fs_tail_setup(int dtype, int ncoef0, const void* const* op0, int 
 extern "C" int fs_tail_cycle(int dtype, int ncoef0, const void* const* op0, const void* buf,
                              const void* b, void* x_out, void* scratch, int N, int M,
                              int n_levels, int n_pre, int n_post, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;  // float or double only
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0
       ? fs::cycle<float>(ncoef0, op0, buf, b, x_out, scratch, N, M, n_levels, n_pre, n_post, s)

@@ -30,6 +30,12 @@ from fluidsolver_tpu_torch.ops import stencil
 from fluidsolver_tpu_torch.solvers.state import end_tolerance
 
 
+def _flow(state):
+    """The flow fields of a state: a ``FlowState``, or the ``flow`` of a
+    two-phase or immersed-interface state."""
+    return getattr(state, "flow", state)
+
+
 class Simulation:
     def __init__(
         self,
@@ -75,7 +81,7 @@ class Simulation:
         """The monitor quantities of ``state``, name -> 0-d tensor."""
         g = self.grid
         two = self.case.two_phase
-        fl = state.flow if two else state
+        fl = _flow(state)
         div = stencil.divergence(fl.U, fl.V, g.dx, g.dy)
         out = {
             "time": fl.t,
@@ -105,7 +111,7 @@ class Simulation:
     def _field_values(self, state) -> dict:
         """The output planes of ``state`` (cell-centred, ghosted)."""
         two = self.case.two_phase
-        fl = state.flow if two else state
+        fl = _flow(state)
         g = self.grid
         out = {
             "pressure": fl.p,

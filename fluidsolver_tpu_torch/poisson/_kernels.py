@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu", "cg.cu", "momentum.cu", "elvira.cu",
            "curvature.cu", "overlap.cu", "rb_sweep.cu")
-HEADERS = ("boxmg_device.cuh", "vof_device.cuh")
+HEADERS = ("bf16.cuh", "boxmg_device.cuh", "vof_device.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -100,8 +100,10 @@ def _nvcc() -> str:
 def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((csrc / name).read_bytes())
+        # another checkout's csrc may lack a header of this one
+        if (csrc / name).exists():
+            h.update(name.encode())
+            h.update((csrc / name).read_bytes())
     return build_dir / f"libfs_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -162,12 +164,28 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+
 def dtype_code(dtype: torch.dtype) -> int:
-    if dtype == torch.float32:
-        return 0
-    if dtype == torch.float64:
-        return 1
-    raise TypeError(f"the CUDA kernels take float32 or float64, not {dtype}")
+    """The entry points' dtype argument: 0 float, 1 double, 2 bf16. Only
+    ``fs_fused_smooth`` and ``fs_rb_sweep`` take 2; every other entry point
+    returns cudaErrorInvalidValue for it, and its wrapper raises."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA kernels take float32, float64 or bfloat16, not {dtype}")
+    return _DTYPE_CODES[dtype]
+
+
+def torch_dtype(name) -> torch.dtype:
+    """A dtype given by name (``"bfloat16"``, ``"float32"``, ...; the
+    config's ``pressure_precond_dtype``) or as a torch dtype, as the JAX
+    package reads it with ``jnp.dtype``."""
+    if isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"not a floating-point dtype: {name!r}")
+    return dtype
 
 
 def ptrs(tensors) -> ctypes.Array:

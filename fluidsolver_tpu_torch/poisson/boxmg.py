@@ -17,11 +17,20 @@ COARSE_SWEEPS symmetric sweeps (no dense inverse). This is the JAX
 package's TPU structure without its VMEM and dtype gates. The JAX package's
 CPU path instead keeps descending and solves the coarsest level with a
 dense inverse, so the two agree to the solve tolerance, not bitwise.
+
+A low-precision hierarchy (``pressure_precond_dtype``, bf16) is the JAX
+package's ``cast_hierarchy``: the levels are built at full precision with
+``fused_rap`` all the way down, without the tail (whose kernels are f32 and
+f64 only), their planes are cast once, and the coarsest level, when it is
+small enough, is solved with an f32 dense inverse
+(``_dense_coarse_inverse``). Its V-cycle runs ``fused_smooth`` on bf16
+storage with f32 arithmetic on every level above the coarsest.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Union
 
 import torch
@@ -33,8 +42,8 @@ MAX_LEVELS = 16
 COARSEST = 4
 # symmetric sweep pairs x2 on the coarsest level
 COARSE_SWEEPS = 32
-# the JAX package's dense-inverse stop; kept because it ends the hierarchy
-# (a level this small is the coarsest), though the port sweeps it instead
+# the JAX package's dense-inverse stop: a level this small is the coarsest;
+# the tail sweeps it, a cast hierarchy inverts it densely
 DIRECT_COARSEST = 16
 DIRECT_CAP = 512
 MAX_TAIL_LEVELS = 6
@@ -82,6 +91,15 @@ class BoxTransfer:
 Operator = Union[StencilOp, Stencil9]
 COEF_NAMES = ("aC", "aL", "aR", "aB", "aT", "aSW", "aSE", "aNW", "aNE")
 WEIGHT_NAMES = ("pW", "pE", "pS", "pN", "pSW", "pSE", "pNW", "pNE")
+
+
+def cast_struct(s, dtype):
+    """A copy of an operator or transfer (any dataclass of planes) with
+    every plane cast to ``dtype``; None stays None."""
+    if s is None:
+        return None
+    return dataclasses.replace(s, **{f.name: getattr(s, f.name).to(dtype)
+                                     for f in dataclasses.fields(s)})
 
 
 def coefs(op: Operator) -> list:
@@ -301,13 +319,17 @@ def _rb_sweep(op: Operator, x, b, reverse: bool = False):
 
 
 # ---- hierarchy -------------------------------------------------------------
+def _direct(shape) -> bool:
+    """A level of ``shape`` is small enough for the dense coarse inverse."""
+    return min(shape) <= DIRECT_COARSEST and shape[0] * shape[1] <= DIRECT_CAP
+
+
 def _stop_here(shape, n_levels_incl: int) -> bool:
     """Whether a level of ``shape`` is the coarsest when the hierarchy holds
     ``n_levels_incl`` levels counting this one (the JAX package's stop
     predicate: MAX_LEVELS, the min-dimension floor, or small enough for a
     direct solve)."""
-    direct = min(shape) <= DIRECT_COARSEST and shape[0] * shape[1] <= DIRECT_CAP
-    return n_levels_incl >= MAX_LEVELS or min(shape) <= COARSEST or direct
+    return n_levels_incl >= MAX_LEVELS or min(shape) <= COARSEST or _direct(shape)
 
 
 def _remaining_depth(shape, built: int) -> int:
@@ -331,12 +353,15 @@ class BoxLevel:
     op: Operator
     tr: Optional[BoxTransfer] = None   # transfer to the next coarser level
     tail: object = None                # cuda_tail.TailPack from this level down
+    coarse_inv: Optional[torch.Tensor] = None  # dense inverse of the coarsest level
 
 
-def build_hierarchy(op: StencilOp) -> list:
+def build_hierarchy(op: StencilOp, tail: bool = True) -> list:
     """Finest level keeps the 5-point operator; coarse levels are 9-point.
     Levels above the tail are built by ``fused_rap``; the tail (all levels
-    from its start down) by one ``build_tail_pack`` launch."""
+    from its start down) by one ``build_tail_pack`` launch. ``tail=False``
+    builds every level with ``fused_rap`` down to the coarsest (the
+    full-precision build of :func:`cast_hierarchy`)."""
     from fluidsolver_tpu_torch.poisson import cuda_rap, cuda_tail
 
     levels = []
@@ -344,7 +369,7 @@ def build_hierarchy(op: StencilOp) -> list:
     while True:
         shape = tuple(cur.aC.shape)
         n_rem = _remaining_depth(shape, len(levels))
-        if tail_fits(shape, n_rem):
+        if tail and tail_fits(shape, n_rem):
             levels.append(BoxLevel(op=cur, tail=cuda_tail.build_tail_pack(cur, n_rem)))
             return levels
         if n_rem == 1:
@@ -355,6 +380,62 @@ def build_hierarchy(op: StencilOp) -> list:
         cur = cur_next
 
 
+def _dense_coarse_inverse(op: Operator) -> torch.Tensor:
+    """Dense symmetric inverse of a small coarsest-level operator, in f32 at
+    least (the JAX package's ``_dense_coarse_inverse``).
+
+    The stencil is materialised as an (n, n) matrix; all-zero rows become
+    identity rows; the constant nullspace of an all-Neumann operator is
+    deflated with the rank-one shift ``c / n_live * v v^T`` over the live
+    rows (v = live indicator, c = mean |diagonal|). The shift is applied
+    only when the operator really is singular (its live row sums vanish to
+    within sqrt(eps) c), decided on the device with ``torch.where``; a
+    pinned operator is inverted as it is. ``torch.linalg.inv_ex`` reads no
+    error flag back to the host."""
+    c = op.aC
+    N, M = c.shape
+    n = N * M
+    dtype = torch.promote_types(c.dtype, torch.float32)
+    I = torch.arange(N, device=c.device)[:, None].expand(N, M)
+    J = torch.arange(M, device=c.device)[None, :].expand(N, M)
+    rows = (I * M + J).reshape(-1)
+    A = torch.zeros((n, n), dtype=dtype, device=c.device)
+    for name in COEF_NAMES[:len(coefs(op))]:
+        di, dj = _A_OFFSETS[name]
+        valid = (I + di >= 0) & (I + di < N) & (J + dj >= 0) & (J + dj < M)
+        cols = ((I + di) * M + (J + dj)).clamp(0, n - 1).reshape(-1)
+        coef = getattr(op, name)
+        vals = torch.where(valid, coef, torch.zeros_like(coef)).to(dtype).reshape(-1)
+        A.index_put_((rows, cols), vals, accumulate=True)
+    diag = torch.diagonal(A)
+    live = diag != 0.0
+    A = A + torch.diag((~live).to(dtype))
+    v = live.to(dtype)
+    n_live = torch.clamp(torch.sum(v), min=1.0)
+    shift = torch.sum(torch.abs(diag)) / n_live
+    # deflate only a genuinely singular (all-Neumann) operator
+    rowsum_defect = torch.max(torch.abs(torch.where(live, A @ v, torch.zeros_like(v))))
+    singularish = rowsum_defect < math.sqrt(torch.finfo(dtype).eps) * shift
+    A = A + torch.where(singularish, shift / n_live, torch.zeros_like(shift)) * torch.outer(v, v)
+    inv, _ = torch.linalg.inv_ex(A)
+    return 0.5 * (inv + inv.T)
+
+
+def cast_hierarchy(levels: list, dtype) -> list:
+    """The hierarchy ``levels`` (built with ``tail=False``: the tail's
+    kernels take f32 and f64 only) with every plane cast to ``dtype``
+    (bf16: half the V-cycle's bytes), built at full precision and rounded
+    once (the JAX package's ``cast_hierarchy``); the coarsest level, if
+    small enough, gets the f32 dense inverse of its full-precision
+    operator."""
+    if levels[-1].tail is not None:
+        raise ValueError("cast a hierarchy built without the tail (build_hierarchy(op, tail=False))")
+    out = [BoxLevel(op=cast_struct(l.op, dtype), tr=cast_struct(l.tr, dtype)) for l in levels]
+    if _direct(tuple(out[-1].op.aC.shape)):
+        out[-1].coarse_inv = _dense_coarse_inverse(levels[-1].op)
+    return out
+
+
 def v_cycle(levels: list, b: torch.Tensor, n_pre: int = 1, n_post: int = 1) -> torch.Tensor:
     """One symmetric V(n_pre, n_post) cycle from a zero initial guess."""
     from fluidsolver_tpu_torch.poisson import cuda_tail, cuda_vcycle
@@ -363,6 +444,10 @@ def v_cycle(levels: list, b: torch.Tensor, n_pre: int = 1, n_post: int = 1) -> t
         level = levels[lvl]
         if level.tail is not None:
             return cuda_tail.tail_cycle(level.tail, b_l, n_pre, n_post)
+        if level.coarse_inv is not None:
+            # exact coarse solve: one product with the f32 inverse
+            inv = level.coarse_inv
+            return (inv @ b_l.reshape(-1).to(inv.dtype)).reshape(b_l.shape).to(b_l.dtype)
         if level.tr is None:
             # coarsest level without a tail: symmetric sweep pairs
             x = None

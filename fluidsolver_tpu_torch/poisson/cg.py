@@ -4,6 +4,13 @@ geometric multigrid ("mg", ``poisson/mg.py``, the HYPRE PCG + PFMG analog
 and the default) or of BoxMG ("boxmg", ``poisson/boxmg.py``), the diagonal
 ("jacobi") or none.
 
+``precond_dtype`` (bf16) runs the V-cycle on a hierarchy stored in a
+narrower dtype than the CG iteration (the JAX package's ``precond_dtype``):
+BoxMG's is built at full precision and cast (``boxmg.cast_hierarchy``), the
+"mg" hierarchy is built from the operator cast to it. The cycle's output is
+cast back to the residual's dtype and its non-finite values are zeroed on
+the device.
+
 Convergence criterion: relative two-norm ||r||/||b|| < tol. For the
 singular all-Neumann system the preconditioned direction and the iterate
 are kept orthogonal to the constant nullspace by mean subtraction.
@@ -26,7 +33,7 @@ import torch
 from torch.profiler import record_function
 
 from fluidsolver_tpu_torch.core import sync
-from fluidsolver_tpu_torch.poisson import boxmg, cuda_cg, mg
+from fluidsolver_tpu_torch.poisson import _kernels, boxmg, cuda_cg, mg
 from fluidsolver_tpu_torch.poisson.linsys import StencilOp
 
 _MG = {"mg": mg, "boxmg": boxmg}
@@ -36,23 +43,46 @@ _MG = {"mg": mg, "boxmg": boxmg}
 GUARD_RANGE = "pcg.guards"
 
 
-def build_precond_levels(op: StencilOp, precond: str):
+def build_precond_levels(op: StencilOp, precond: str, precond_dtype=None):
     """The multigrid hierarchy for ``precond`` "mg" or "boxmg"; None for
-    the others. Solvers build it once and reuse it over several solves."""
-    return _MG[precond].build_hierarchy(op) if precond in _MG else None
+    the others. Solvers build it once and reuse it over several solves.
+    ``precond_dtype`` (a torch dtype or its name): the hierarchy's storage
+    dtype, if it differs from the operator's."""
+    if precond not in _MG:
+        return None
+    if precond_dtype is not None:
+        precond_dtype = _kernels.torch_dtype(precond_dtype)
+        if precond_dtype != op.aC.dtype:
+            if precond == "boxmg":
+                # built at full precision and rounded once
+                return boxmg.cast_hierarchy(boxmg.build_hierarchy(op, tail=False), precond_dtype)
+            op = boxmg.cast_struct(op, precond_dtype)
+    return _MG[precond].build_hierarchy(op)
 
 
-def make_m_inv(op: StencilOp, precond: str, levels=None, n_pre: int = 1, n_post: int = 1):
+def _levels_dtype(levels) -> torch.dtype:
+    first = levels[0]
+    return (first.op if isinstance(first, boxmg.BoxLevel) else first).aC.dtype
+
+
+def make_m_inv(op: StencilOp, precond: str, levels=None, n_pre: int = 1, n_post: int = 1,
+               precond_dtype=None):
     """``(M_inv, levels)``: the preconditioner ``r -> z`` for ``precond`` in
     {"mg", "boxmg", "jacobi", "none"} and its hierarchy (built here for
-    "mg"/"boxmg" unless given, else None). Shared by PCG and
-    ``poisson/krylov.py``."""
+    "mg"/"boxmg" unless given, else None; in ``precond_dtype`` if given).
+    Shared by PCG and ``poisson/krylov.py``."""
     if precond in _MG:
         if levels is None:
-            levels = build_precond_levels(op, precond)
+            levels = build_precond_levels(op, precond, precond_dtype)
+        lvl_dtype = _levels_dtype(levels)
 
         def M_inv(r):
-            return _MG[precond].v_cycle(levels, r, n_pre=n_pre, n_post=n_post)
+            if lvl_dtype == r.dtype:
+                return _MG[precond].v_cycle(levels, r, n_pre=n_pre, n_post=n_post)
+            z = _MG[precond].v_cycle(levels, r.to(lvl_dtype), n_pre=n_pre, n_post=n_post)
+            # a narrow cycle can overflow on an extreme operator: a zeroed
+            # direction wastes the iteration, where a NaN would poison x
+            return torch.nan_to_num(z.to(r.dtype), nan=0.0, posinf=0.0, neginf=0.0)
     elif precond == "jacobi":
         aC_safe = torch.where(op.aC == 0.0, torch.ones_like(op.aC), op.aC)
 
@@ -68,7 +98,7 @@ def make_m_inv(op: StencilOp, precond: str, levels=None, n_pre: int = 1, n_post:
 
 def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singular: bool,
               precond: str = "mg", n_pre: int = 1, n_post: int = 1,
-              x0: Optional[torch.Tensor] = None, levels=None):
+              x0: Optional[torch.Tensor] = None, levels=None, precond_dtype=None):
     """Solve A x = b from zero (or the warm start ``x0``).
 
     Returns (x, rel_residual, iterations): ``rel_residual`` a 0-d tensor,
@@ -76,12 +106,14 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
     ||b - A x0|| >= ||b||). The loop stops at ``tol``, at ``max_iter``, on a
     stagnation window (no 0.01% improvement for STAG_WINDOW iterations),
     or on a breakdown (non-positive pAp or a non-finite value), and returns
-    the best iterate seen.
+    the best iterate seen. ``precond_dtype``: the V-cycle's storage dtype
+    (see :func:`make_m_inv`).
 
     The JAX package reaches its fused init (``step_init``) only under its
     TPU band layout, which is not ported; here every solve starts with
     ``step_init``."""
-    M_inv, _ = make_m_inv(op, precond, levels=levels, n_pre=n_pre, n_post=n_post)
+    M_inv, _ = make_m_inv(op, precond, levels=levels, n_pre=n_pre, n_post=n_post,
+                          precond_dtype=precond_dtype)
 
     def project(v):
         return v - torch.mean(v) if singular else v

@@ -8,6 +8,12 @@ half-steps, red first unless ``reverse``.
 
 The JAX package takes its kernel only on a TPU and for a level that fits
 VMEM; the port launches it on every level of a V-cycle on CUDA tensors.
+
+On bf16 operands (the "mg" hierarchy of ``pressure_precond_dtype=
+"bfloat16"``) the sweep computes in bf16, as the TPU kernel does: the twin
+is ``color_update`` chained on bf16 tensors, each PyTorch operation
+rounding its result, and the kernel rounds after every operation in the
+same order (``csrc/bf16.cuh`` ``bf16r``).
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ def rb_sweep_twin(op: StencilOp, x, b, reverse: bool = False):
 
 
 def rb_sweep_cuda(op: StencilOp, x, b, reverse: bool = False):
-    """Launch the kernel (same contract as :func:`rb_sweep`)."""
+    """Launch the kernel (same contract as :func:`rb_sweep`). Every launch
+    counts as ``rb_sweep``; a bf16 one also as ``rb_sweep_bf16``."""
     planes = coefs(op)
     _kernels.check(planes + [b, x], b.device, b.dtype)
     if any(t.shape != b.shape for t in planes + [x]) or b.dim() != 2:
@@ -37,6 +44,8 @@ def rb_sweep_cuda(op: StencilOp, x, b, reverse: bool = False):
         _kernels.dtype_code(b.dtype), _kernels.ptrs(planes), b.data_ptr(), x.data_ptr(),
         out.data_ptr(), N, M, int(not reverse), _kernels.stream(b.device))
     _kernels.raise_on_error(rc, "rb_sweep")
+    if b.dtype == torch.bfloat16:
+        _kernels.launches["rb_sweep_bf16"] += 1
     return out
 
 

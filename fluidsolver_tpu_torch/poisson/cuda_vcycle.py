@@ -6,6 +6,12 @@ CUDA source: ``csrc/fused_smooth.cu``; replaces the TPU kernel
 ``fluidsolver_tpu/poisson/pallas_vcycle.py:357``. The plain PyTorch twin
 chains ``boxmg.color_update`` half-steps with ``boxmg.restrict_box`` /
 ``boxmg.prolong_box``.
+
+bf16 operands (a hierarchy cast by ``boxmg.cast_hierarchy``) are stored in
+bf16 and computed in f32, the TPU kernel's contract
+(``pallas_vcycle.py:118-125``): the twin casts the operands up to f32, runs
+the f32 twin and casts the outputs down, so the phase rounds once, on its
+outputs.
 """
 
 from __future__ import annotations
@@ -16,8 +22,8 @@ import torch
 
 from fluidsolver_tpu_torch.poisson import _kernels
 from fluidsolver_tpu_torch.poisson.boxmg import (WEIGHT_NAMES, BoxTransfer, Operator,
-                                                 apply_any, coefs, color_update,
-                                                 prolong_box, restrict_box)
+                                                 apply_any, cast_struct, coefs,
+                                                 color_update, prolong_box, restrict_box)
 
 MAX_HALO = 8  # csrc/fused_smooth.cu kMaxHalo: half-steps + residual depth
 _PLAIN, _RESIDUAL, _RESTRICT = 0, 1, 2
@@ -38,6 +44,13 @@ def fused_smooth_twin(op: Operator, b, x0=None, colors=(), residual=False,
                       tr: Optional[BoxTransfer] = None, restrict=False, ec=None):
     """The plain PyTorch version (same contract as :func:`fused_smooth`)."""
     _check_variant(colors, residual, restrict, tr, ec)
+    compute = torch.promote_types(b.dtype, torch.float32)
+    if compute != b.dtype:
+        # narrow storage: the f32 twin on the widened operands, rounded once
+        up = [None if t is None else t.to(compute) for t in (x0, ec)]
+        out = fused_smooth_twin(cast_struct(op, compute), b.to(compute), up[0], colors, residual,
+                                cast_struct(tr, compute), restrict, up[1])
+        return tuple(t.to(b.dtype) for t in out) if isinstance(out, tuple) else out.to(b.dtype)
     x = torch.zeros_like(b) if x0 is None else x0
     if ec is not None:
         x = x + prolong_box(tr, ec, b.shape)
@@ -52,7 +65,9 @@ def fused_smooth_twin(op: Operator, b, x0=None, colors=(), residual=False,
 
 def fused_smooth_cuda(op: Operator, b, x0=None, colors=(), residual=False,
                       tr: Optional[BoxTransfer] = None, restrict=False, ec=None):
-    """Launch the kernel (same contract as :func:`fused_smooth`)."""
+    """Launch the kernel (same contract as :func:`fused_smooth`). Every
+    launch counts as ``fused_smooth``; a bf16 one also as
+    ``fused_smooth_bf16``."""
     _check_variant(colors, residual, restrict, tr, ec)
     planes = coefs(op)
     wplanes = [getattr(tr, n) for n in WEIGHT_NAMES] if tr is not None else []
@@ -77,6 +92,8 @@ def fused_smooth_cuda(op: Operator, b, x0=None, colors=(), residual=False,
         None if r is None else r.data_ptr(), N, M, mask, len(colors), mode,
         _kernels.stream(b.device))
     _kernels.raise_on_error(rc, "fused_smooth")
+    if b.dtype == torch.bfloat16:
+        _kernels.launches["fused_smooth_bf16"] += 1
     return x if r is None else (x, r)
 
 

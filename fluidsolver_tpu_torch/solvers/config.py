@@ -3,9 +3,8 @@
 The fields, their defaults and their meaning are those of the JAX package's
 ``SolverConfig``; ``config_from_jax`` converts one of those into this one.
 The port's steps support the subset that ``solvers/incomp.py`` and
-``solvers/twophase.py`` check for (everything but
-``pressure_precond_dtype``, a refresh policy other than "solve" and
-"step", and a mesh).
+``solvers/twophase.py`` check for (everything but a refresh policy other
+than "solve" and "step", and a mesh).
 """
 
 from __future__ import annotations

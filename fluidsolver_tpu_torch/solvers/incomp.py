@@ -9,7 +9,9 @@ solve -> gauge shift -> projection }.
 The pressure solve takes the JAX package's whole surface: ``pressure_method``
 "pcg", "bicgstab", "gmres" or "mgsolve" around ``pressure_solver`` "mg",
 "boxmg", "jacobi" or "none", or ``pressure_solver="direct"`` (dense, small
-boxes). Not ported, and raising: ``pressure_precond_dtype``.
+boxes). ``pressure_precond_dtype`` ("bfloat16") runs the "mg" or "boxmg"
+V-cycle on a hierarchy stored in that dtype (``poisson.cg.make_m_inv``);
+the iteration itself stays in the state's dtype.
 
 Immersed boundaries (``cfg.ib_mode`` with the fields ``ib`` passed to
 ``make_step``): "luchini" replaces the velocity update by the exponential
@@ -34,7 +36,7 @@ from fluidsolver_tpu_torch.core.grid import Grid
 from fluidsolver_tpu_torch.ib import diffuse, luchini, sharp
 from fluidsolver_tpu_torch.ops import momentum as mom
 from fluidsolver_tpu_torch.ops import stencil
-from fluidsolver_tpu_torch.poisson import cg, krylov, linsys
+from fluidsolver_tpu_torch.poisson import _kernels, cg, krylov, linsys
 from fluidsolver_tpu_torch.poisson.direct import solve_direct
 from fluidsolver_tpu_torch.solvers.config import SolverConfig
 from fluidsolver_tpu_torch.solvers.state import (FlowState, clamp_dt_to_end,
@@ -55,7 +57,7 @@ def _check_supported(cfg: SolverConfig) -> None:
         raise ValueError("pressure_method='mgsolve' needs pressure_solver in {'mg', 'boxmg'} "
                          "(the V-cycle is the solver)")
     if cfg.pressure_precond_dtype is not None:
-        raise ValueError("pressure_precond_dtype is not ported")
+        _kernels.torch_dtype(cfg.pressure_precond_dtype)  # raises on a name that is no float dtype
     if cfg.ib_mode not in IB_MODES:
         raise ValueError(f"unknown ib_mode: {cfg.ib_mode!r}")
 
@@ -89,11 +91,11 @@ def pressure_solve(state: FlowState, div, dt, grid: Grid, cfg: SolverConfig,
         delta_p, rel, iters = cg.solve_pcg(
             op, rhs, tol=tol, max_iter=cfg.pressure_max_iter, singular=singular,
             precond=cfg.pressure_solver, n_pre=cfg.mg_pre, n_post=cfg.mg_post, x0=x0,
-            levels=levels,
+            levels=levels, precond_dtype=cfg.pressure_precond_dtype,
         )
     else:
         M_inv, _ = cg.make_m_inv(op, cfg.pressure_solver, levels=levels, n_pre=cfg.mg_pre,
-                                 n_post=cfg.mg_post)
+                                 n_post=cfg.mg_post, precond_dtype=cfg.pressure_precond_dtype)
         common = dict(tol=tol, max_iter=cfg.pressure_max_iter, singular=singular, M_inv=M_inv,
                       x0=x0)
         if cfg.pressure_method == "bicgstab":
@@ -108,12 +110,13 @@ def pressure_solve(state: FlowState, div, dt, grid: Grid, cfg: SolverConfig,
 
 def build_step_levels(rho_u, rho_v, grid: Grid, cfg: SolverConfig):
     """The multigrid hierarchy of the operator assembled from these
-    densities, or None for a solver without one."""
+    densities (in ``cfg.pressure_precond_dtype`` if set), or None for a
+    solver without one."""
     _check_supported(cfg)
     if cfg.pressure_solver not in ("mg", "boxmg"):
         return None
     op = linsys.assemble_pressure_operator(rho_u, rho_v, grid.dx, grid.dy, cfg.pressure_pin)
-    return cg.build_precond_levels(op, cfg.pressure_solver)
+    return cg.build_precond_levels(op, cfg.pressure_solver, cfg.pressure_precond_dtype)
 
 
 def project_velocity(U, V, delta_p, rho_u, rho_v, dt, dx: float, dy: float):

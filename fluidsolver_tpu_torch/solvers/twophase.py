@@ -23,8 +23,9 @@ spread as a divergence source over the pure-liquid cells of its 3x3 box).
 ``pressure_precond_refresh`` "solve" builds the multigrid hierarchy ("mg"
 or "boxmg") inside every solve; "step" builds it once per step from
 subiteration 0's transported densities and reuses it for the rest; a
-solver without a hierarchy has none to build. Other refresh policies,
-``pressure_precond_dtype`` and a mesh raise.
+solver without a hierarchy has none to build; with
+``pressure_precond_dtype`` ("bfloat16") it is built and cast once a step.
+Other refresh policies and a mesh raise.
 
 The step runs the reference's fused composition (its ``FS_PALLAS_CG`` and
 ``FS_PALLAS_MOMENTUM``): the fused PCG iteration (kernels 5-7, in

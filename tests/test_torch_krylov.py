@@ -207,11 +207,39 @@ def test_channel_step_matches_jax(method, solver):
 
 
 def test_unsupported_pressure_configs_raise():
-    """MG-as-solver needs a V-cycle; the bf16 V-cycle is not ported."""
+    """MG-as-solver needs a V-cycle; a preconditioner dtype must be a float
+    dtype's name."""
     grid = make_grid(0.0, 1.0, 8, 0.0, 1.0, 8)
     for kw in (dict(pressure_method="mgsolve", pressure_solver="jacobi"),
-               dict(pressure_precond_dtype="bfloat16"), dict(pressure_solver="ilu"),
+               dict(pressure_precond_dtype="bf8"), dict(pressure_solver="ilu"),
                dict(pressure_method="cgs")):
         cfg = config_from_jax(channel_config(**kw))
         with pytest.raises(ValueError):
             incomp.make_step(grid, cfg, torch.float64, "cpu")
+
+
+@pytest.mark.parametrize("method,solver", [("bicgstab", "boxmg"), ("gmres", "mg"),
+                                           ("mgsolve", "boxmg")])
+def test_channel_step_bf16_preconditioner_matches_jax(method, solver):
+    """The channel's 3 steps with ``pressure_precond_dtype="bfloat16"``:
+    BiCGSTAB, GMRES and MG-as-solver take the bf16 V-cycle (cast back to
+    f64) as their M_inv, and U, V, p stay within 1e-8 of the JAX
+    package's step, as in f32. (BiCGSTAB stops on its breakdown guard near
+    1e-10 in both packages, after 3-8 iterations a step; fields within
+    3.1e-10.)"""
+    jcfg = channel_config(pressure_method=method, pressure_solver=solver,
+                          pressure_precond_dtype="bfloat16")
+    jg = jmake_grid(0.0, 4.0, 32, 0.0, 1.0, 8)
+    jstate = jinit_flow_state(jg, jcfg.rho_gas, jcfg.visc_gas)
+    jstate = dataclasses.replace(jstate, U=jnp.ones_like(jstate.U), U_old=jnp.ones_like(jstate.U))
+    state = state_from_numpy(jstate, "cpu")
+    grid = make_grid(jg.x_min, jg.x_max, jg.nx, jg.y_min, jg.y_max, jg.ny)
+    jstep = jincomp.make_step(jg, jcfg)
+    step = incomp.make_step(grid, config_from_jax(jcfg), torch.float64, "cpu")
+    lv0 = step.levels[0]
+    assert (lv0.op.aC if solver == "boxmg" else lv0.aC).dtype == torch.bfloat16
+    for _ in range(3):
+        jstate = jstep(jstate, 10.0)
+        state = step(state, 10.0)
+        for k in ("U", "V", "p"):
+            assert max_rel(getattr(state, k), getattr(jstate, k)) <= TOL, k

@@ -95,10 +95,18 @@ def test_fixed_runner_matches_run():
 
 
 def test_unsupported_config_raises():
+    """A preconditioner dtype that is not a float raises; bf16 runs (its
+    hierarchy is built in bf16 at make_step); a state of another dtype
+    than the step's raises."""
     case = get_case("lid_driven", n=16)
     with pytest.raises(ValueError):
-        incomp.make_step(case.grid, dataclasses.replace(case.cfg, pressure_precond_dtype="bfloat16"),
+        incomp.make_step(case.grid, dataclasses.replace(case.cfg, pressure_precond_dtype="bf8"),
                          torch.float64, "cpu")
+    cfg16 = dataclasses.replace(case.cfg, pressure_precond_dtype="bfloat16")
+    step16 = incomp.make_step(case.grid, cfg16, torch.float64, "cpu")
+    assert step16.levels[0].op.aC.dtype == torch.bfloat16
+    out = step16(case.make_state(torch.float64, "cpu"), case.t_end)
+    assert bool(torch.isfinite(out.p).all()) and float(out.p_res) < case.cfg.pressure_tol
     step = case.make_step(torch.float64, "cpu")
     with pytest.raises(ValueError):
         step(case.make_state(torch.float32, "cpu"), case.t_end)

@@ -101,12 +101,25 @@ def test_fixed_runner_matches_run():
 
 @pytest.mark.parametrize("change", [
     dict(pressure_precond_refresh="never"),
-    dict(pressure_precond_dtype="bfloat16"),
+    dict(pressure_precond_dtype="bf8"),
 ])
 def test_unsupported_options_raise(change):
     case = get_case("stationary_drop", n=16)
     with pytest.raises(ValueError):
         twophase.make_step(case.grid, dataclasses.replace(case.cfg, **change), torch.float64, "cpu")
+
+
+@pytest.mark.parametrize("refresh", ["solve", "step"])
+def test_bf16_preconditioner_runs(refresh):
+    """``pressure_precond_dtype="bfloat16"`` runs under both refresh
+    policies: the solves reach the tolerance in f64 with a bf16 V-cycle."""
+    case = get_case("stationary_drop", n=16)
+    cfg = dataclasses.replace(case.cfg, pressure_precond_dtype="bfloat16",
+                              pressure_precond_refresh=refresh)
+    step = twophase.make_step(case.grid, cfg, torch.float64, "cpu")
+    state = step(case.make_state(torch.float64, "cpu"), case.t_end)
+    assert float(state.flow.p_res) < cfg.pressure_tol and int(state.flow.p_iter) > 0
+    assert bool(torch.isfinite(state.flow.p).all())
 
 
 def test_unsupported_entry_points_raise():
