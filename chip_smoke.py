@@ -126,6 +126,13 @@ result line):
      "mg" at tol 1e-11, held like 4e; two_phase_channel(ny=16) on "mg" at
      its tol 1e-6, whose solves end unconverged (at the cap or stalled):
      final fields to 1e-3, iter(p) to 2 a step;
+  4g. ops/extrapolate.py and ib/mls.py, GPU against CPU in f64 at the CPU
+     tests' sizes and tolerances: the constant and divergence-free
+     extrapolation of a Taylor-Green velocity known in a circle (24^2, and
+     the sealed projection at 32^2) to 1e-10 with the CG iterations within
+     1 (sealed: 2) and one host read an iteration; the MLS weights, shape
+     functions, interpolation and the 5-point and nearest-neighbour
+     samples of a 32^2 field to 1e-12 (nearest neighbour exact);
   5. lid_driven(n=1024), f32, 20 steps: ms/step, PCG iterations, max |div|,
      host syncs per step, launch counts (the V-cycle and the PCG kernels),
      and the kernels seen by torch.profiler over make_step plus one step;
@@ -184,12 +191,42 @@ result line):
   13. the DFG 2D-1 cases (diffuse, sharp quadratic, Luchini) at ny=448
      (2403 x 448) through the driver, f32, 10 steps each, held as phase 11
      with C_D, C_L and dp reported; immersed_interface(n=1024) with 1287
-     markers, 10 steps: no NaN, max|div| below 1e-3.
+     markers, 10 steps: no NaN, max|div| below 1e-3;
+  14. the x-slab mesh (parallel/), its slabs on the cards there are
+     (SlabMesh(["cuda:0"] * ndev) on one card), each slab's device printed:
+     (a) make_sharded_smoother torch.equal to the global fused_smooth (x
+     and r) for ndev 2, 4 and 8 at the six V(2,2) phases of one distributed
+     bench cycle (1026^2, 513^2, 257^2, padded with identity rows to the
+     plan's rows), the kernel torch.equal to its twin on every extended
+     slab, and at ndev 4 each phase timed in turns with the global launch
+     beside both bounds; at ndev 4 on the distributed hierarchy of the
+     bench's pressure operator, the kernel torch.equal to its twin on every
+     slab of every distributed level, both phases of the cycle, at the
+     shapes the mesh step gives it (level 0's 284 x 1026 slabs timed for the
+     kernels line); (b) the distributed levels (#4 on 2-row extended slabs),
+     gathered and cropped, torch.equal to the single-device fused_rap
+     levels 0..L_dist of the bench's pressure operator, ndev 2 and 4; (c)
+     solve_pcg_sharded against cg.solve_pcg(precond="boxmg") on that
+     operator (f32, tol 1e-6, V(2,2)), ndev 2 and 4, cold and warm:
+     iterations within 1, both residuals at most tol, the solutions within
+     10 tol, one host read an iteration, a prebuilt hierarchy torch.equal;
+     (d) the mesh step (4 slabs) GPU against CPU in f64 on
+     two_phase_channel(16) (tol 1e-11) and the flagship drop at n=48 (tol
+     1e-6), 3 steps: 1e-9 and the same p_iter; (e) the mesh step on the
+     bench configuration (1024^2, f32, 4 slabs on the card): step 1 against
+     the single-device step (vf within 1e-5, each solve's iterations within
+     1), then 10 steps of each (the mesh's launch counts exact: every
+     kernel of the path launched), no NaN, vf bounds, max|div| below 1e-3,
+     host reads exactly 1 + p_iter + one a solve below the cap, ms/step of
+     both, a 3-step profile of the mesh step (idle share); (f) a shard's
+     lane overflow gives an infinite volume error.
 The second-to-last line is a JSON object with one entry per kernel (the
 launches from phase 6, rb_sweep's from phase 7; overlap's quad variant
 under "n0_4", its launches from phase 9; the bf16 forms of fused_smooth
-and rb_sweep under "bf16", their launches from phase 12); the last line
-is {"ok": true, "device": {...}}.
+and rb_sweep under "bf16", their launches from phase 12; kernel #1 on the
+mesh step's slabs as "fused_smooth_local", its launches and the mesh
+step's launches of every kernel from phase 14e); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2330,12 +2367,13 @@ def above_tail_levels(shape) -> int:
         shape = ((shape[0] + 1) // 2, (shape[1] + 1) // 2)
 
 
-def drive_bench(device, g, cfg, vf0, n_steps: int, syncs_out=None):
+def drive_bench(device, g, cfg, vf0, n_steps: int, syncs_out=None, mesh=None):
     """``n_steps`` steps of the two-phase configuration ``cfg`` in f32 from
     the drop ``vf0``, each timed by CUDA events, with the launch counts set
     to 0 just before the first step and read just after the last. Returns
     (step, state, launches, p_iter per step); the host syncs of each step
-    are appended to ``syncs_out`` if given."""
+    are appended to ``syncs_out`` if given; ``mesh``: the mesh step's
+    slabs."""
     from fluidsolver_tpu_torch.core import sync
     from fluidsolver_tpu_torch.ops import stencil
     from fluidsolver_tpu_torch.poisson import _kernels
@@ -2343,7 +2381,7 @@ def drive_bench(device, g, cfg, vf0, n_steps: int, syncs_out=None):
 
     state = twophase.init_two_phase_state(g, cfg, vf0, torch.float32, device)
     vol0 = float(state.vf[1:-1, 1:-1].double().sum())
-    step = twophase.make_step(g, cfg, torch.float32, device)
+    step = twophase.make_step(g, cfg, torch.float32, device, mesh=mesh)
     torch.cuda.synchronize()
 
     _kernels.launches.clear()
@@ -3436,6 +3474,489 @@ def dfg_phase(device) -> None:
     require(float(div.abs().max()) < 1e-3, "immersed_interface: max|div| >= 1e-3")
 
 
+# ---- phase 4g ------------------------------------------------------------------
+def extrapolation_fields(n: int) -> tuple:
+    """tests/test_torch_extrapolate.py's protocol: a Taylor-Green velocity
+    known inside a circle of radius 0.25 on an n^2 grid."""
+    from fluidsolver_tpu_torch.core.grid import make_grid
+
+    g = make_grid(0.0, 1.0, n, 0.0, 1.0, n)
+    Xu, Yu = np.meshgrid(g.x, g.ym, indexing="ij")
+    Xv, Yv = np.meshgrid(g.xm, g.y, indexing="ij")
+    in_u = (Xu - 0.5) ** 2 + (Yu - 0.5) ** 2 <= 0.25 ** 2
+    in_v = (Xv - 0.5) ** 2 + (Yv - 0.5) ** 2 <= 0.25 ** 2
+    U0 = np.where(in_u, np.sin(2 * np.pi * Xu) * np.cos(2 * np.pi * Yu), 0.0)
+    V0 = np.where(in_v, -np.cos(2 * np.pi * Xv) * np.sin(2 * np.pi * Yv), 0.0)
+    return g, U0, V0, in_u, in_v
+
+
+def close_on(what: str, got, want, tol: float) -> None:
+    """max |got - want| <= tol max |want|, both moved to the CPU."""
+    got, want = got.cpu(), want.cpu()
+    err = float((got - want).abs().max()) / (float(want.abs().max()) or 1.0)
+    log(f"    {what}: max|gpu - cpu| / max|cpu| {err:.3e} (bound {tol:g})")
+    require(err <= tol, f"{what}: the card and the CPU differ by {err:.3e} > {tol:g}")
+
+
+def extrapolate_mls_phase(device) -> None:
+    """Phase 4g: ``ops/extrapolate.py`` and ``ib/mls.py`` on the card
+    against the CPU, f64, at the CPU tests' sizes and tolerances
+    (tests/test_torch_extrapolate.py: 1e-10 of the largest value, the CG
+    iterations within 1 (sealed: 2), one counted host read per iteration;
+    tests/test_torch_markers.py: 1e-12, the nearest-neighbour sample
+    exact)."""
+    from fluidsolver_tpu_torch.core import sync
+    from fluidsolver_tpu_torch.core.grid import make_grid
+    from fluidsolver_tpu_torch.ib import mls
+    from fluidsolver_tpu_torch.ops import extrapolate
+
+    cpu = torch.device("cpu")
+    f64 = torch.float64
+
+    def on(a, dev):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    g, U0, V0, in_u, in_v = extrapolation_fields(24)
+    const = {dev: extrapolate.constant_extrapolate(on(np.where(in_u, 3.5, 0.0), dev), on(in_u, dev), 64)
+             for dev in (device, cpu)}
+    close_on("constant_extrapolate 24^2, 64 sweeps", const[device], const[cpu], 1e-10)
+    runs = {}
+    for dev in (device, cpu):
+        s0 = sync.count
+        U, V, rel, iters = extrapolate.div_free_extrapolate(on(U0, dev), on(V0, dev), on(in_u, dev),
+                                                            on(in_v, dev), g, tol=1e-11)
+        runs[dev] = (U, V, float(rel), iters, sync.count - s0)
+    (Ug, Vg, relg, itg, syncg), (Uc, Vc, relc, itc, _) = runs[device], runs[cpu]
+    log(f"    div_free_extrapolate 24^2 tol 1e-11: iterations gpu {itg}, cpu {itc}; rel gpu {relg:.3e}; "
+        f"host reads on the card {syncg}")
+    require(abs(itg - itc) <= 1 and relg < 1e-10, "div_free_extrapolate: iterations or residual differ")
+    require(syncg == itg + 1, "div_free_extrapolate: one host read per CG iteration and one for the exit test")
+    close_on("div_free_extrapolate U", Ug, Uc, 1e-10)
+    close_on("div_free_extrapolate V", Vg, Vc, 1e-10)
+
+    g, U0, V0, in_u, in_v = extrapolation_fields(32)
+    n_sweeps = max(U0.shape)
+    sealed = {}
+    for dev in (device, cpu):
+        U_ext = extrapolate.constant_extrapolate(on(U0, dev), on(in_u, dev), n_sweeps)
+        V_ext = extrapolate.constant_extrapolate(on(V0, dev), on(in_v, dev), n_sweeps)
+        sealed[dev] = extrapolate.project_div_free(U_ext, V_ext, on(in_u, dev), on(in_v, dev), g, tol=1e-11,
+                                                   max_iter=4000, seal_boundary=True)
+    log(f"    project_div_free 32^2 sealed: iterations gpu {sealed[device][3]}, cpu {sealed[cpu][3]}")
+    require(abs(sealed[device][3] - sealed[cpu][3]) <= 2, "project_div_free (sealed): iterations differ by > 2")
+    close_on("project_div_free (sealed) U", sealed[device][0], sealed[cpu][0], 1e-10)
+    close_on("project_div_free (sealed) V", sealed[device][1], sealed[cpu][1], 1e-10)
+
+    rng = np.random.default_rng(0)
+    px, py = rng.uniform(0, 1, 5), rng.uniform(0, 1, 5)
+    bx, by = rng.uniform(0, 1, (7, 6)), rng.uniform(0, 1, (7, 6))
+    ex, ey = rng.uniform(0.2, 0.8, 7), rng.uniform(0.2, 0.8, 7)
+    r = np.linspace(-2.5, 2.5, 41)
+    gt = make_grid(0.0, 2 * math.pi, 32, 0.0, 2 * math.pi, 32)
+    Xu, Yu = np.meshgrid(gt.x, gt.ym, indexing="ij")
+    Ut = np.sin(Xu) * np.cos(Yu)
+    qx, qy = np.random.default_rng(2).uniform(0.3, 6.0, 50), np.random.default_rng(2).uniform(0.3, 6.0, 50)
+    args = (gt.x[1], gt.dx, gt.ym[1], gt.dy)
+    out = {}
+    for dev in (device, cpu):
+        out[dev] = [mls.mls_interpolate(on(px, dev), on(py, dev), on(2.0 * px - 3.0 * py + 0.5, dev),
+                                        torch.tensor(0.4, dtype=f64, device=dev),
+                                        torch.tensor(0.6, dtype=f64, device=dev), h=1.0),
+                    mls.mls_shape_functions(on(bx, dev), on(by, dev), on(ex, dev), on(ey, dev), 0.6),
+                    mls.cubic_spline_weight(on(r, dev), 1.0),
+                    mls.eval_field_at_mls5(on(Ut, dev), *args, on(qx, dev), on(qy, dev)),
+                    mls.eval_field_at_nn(on(Ut, dev), *args, on(qx, dev), on(qy, dev))]
+    names = ("mls_interpolate", "mls_shape_functions", "cubic_spline_weight", "eval_field_at_mls5 (32^2 TGV)",
+             "eval_field_at_nn (32^2 TGV)")
+    for name, a, b in zip(names, out[device], out[cpu]):
+        close_on(name, a, b, 0.0 if "nn" in name else 1e-12)
+    require(abs(float(out[device][0]) - (2.0 * 0.4 - 3.0 * 0.6 + 0.5)) < 1e-10,
+            "mls_interpolate does not reproduce a linear field on the card")
+
+
+# ---- phase 14 ------------------------------------------------------------------
+MESH_NDEV = 4
+
+
+def slab_mesh(ndev: int):
+    """``ndev`` slabs over the cards there are (all on cuda:0 with one)."""
+    from fluidsolver_tpu_torch.parallel.mesh import SlabMesh
+
+    count = torch.cuda.device_count()
+    return SlabMesh([torch.device("cuda", i % count) for i in range(ndev)])
+
+
+def mesh_smooth_inputs(device) -> list:
+    """The V(2,2) phases of the distributed cycle on the three levels above
+    the tail of the 1026^2 box (bench_smooth_launches' operators, b and x0):
+    the pre-smoothing phase with its residual from zero and the
+    post-smoothing phase from x0: [(name, level, op, b, kw)]."""
+    out = []
+    for i, (name, op, b, kw) in enumerate(bench_smooth_launches(device)):
+        shape = name.split()[1]
+        if name.startswith("restrict"):
+            out.append((f"pre+residual {shape}", i // 2, op, b, dict(colors=(True, False) * 2, residual=True)))
+        else:
+            out.append((f"post {shape}", i // 2, op, b, dict(x0=kw["x0"], colors=(False, True) * 2)))
+    return out
+
+
+def mesh_smoother_phase(device, errors: Errors, op) -> tuple:
+    """Phase 14a. (1) make_sharded_smoother torch.equal to the global
+    fused_smooth (x and r) for ndev 2, 4 and 8 at the six phases of one
+    bench V(2,2) cycle, each level padded with identity rows to the rows
+    make_plan gives that level of the 1026^2 box (as dist_poisson pads); the
+    kernel torch.equal to its twin on every extended slab; at ndev 4 each
+    phase timed in turns with the global launch. (2) At ndev 4 on the
+    hierarchy build_hierarchy_sharded makes of the bench's pressure operator
+    ``op``: on every slab of every distributed level, both phases of the
+    cycle (pre-smoothing with its residual, w = 6; post-smoothing from x0,
+    w = 4) on the slab operators the V-cycle runs (DistLevel.extended), b
+    and x0 of the plan's slab rows extended by w: the kernel torch.equal to
+    its twin. Returns fused_smooth_local's (kernel ms, twin ms, bound ms,
+    bound by), the mean over the slabs of level 0's pre-smoothing phase
+    (the mesh path's largest slab)."""
+    from fluidsolver_tpu_torch.parallel import cuda_shard, dist_poisson, mesh as mesh_mod
+    from fluidsolver_tpu_torch.poisson import boxmg, cuda_vcycle
+
+    def kernel_is_twin(op_ext, b_ext, x_ext, kw, what):
+        for o, be, xe in zip(op_ext, b_ext, x_ext):
+            kwe = dict(kw, x0=xe) if xe is not None else kw
+            k = cuda_vcycle.fused_smooth_cuda(o, be, **kwe)
+            t = cuda_vcycle.fused_smooth_twin(o, be, **kwe)
+            k, t = (k, t) if isinstance(t, tuple) else ((k,), (t,))
+            errors.compare("fused_smooth_local", k, t, torch.float32, 0.0, 0.0, True, what)
+            require(all(torch.equal(a, c) for a, c in zip(k, t)),
+                    f"{what}: the kernel is not bitwise its twin on an extended slab")
+
+    cases = mesh_smooth_inputs(device)
+    for ndev in (2, 4, 8):
+        mesh = slab_mesh(ndev)
+        plan = dist_poisson.make_plan(*cases[0][3].shape, ndev)
+        if ndev == MESH_NDEV:
+            log(f"  ndev {ndev}: slab devices {[str(d) for d in mesh.devices]}")
+        for name, lvl, op_l, b, kw in cases:
+            rows = plan.NX >> lvl
+            op_p, b_p, x0_p = dist_poisson._pad_operator(op_l, b, kw.get("x0"), rows)
+            kw_p = dict(kw, x0=x0_p) if "x0" in kw else kw
+            smooth = cuda_shard.make_sharded_smoother(mesh, kw["colors"], residual=kw.get("residual", False))
+            got = smooth(op_p, b_p, kw_p.get("x0"))
+            want = cuda_vcycle.fused_smooth_cuda(op_p, b_p, **kw_p)
+            got, want = (got, want) if isinstance(want, tuple) else ((got,), (want,))
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"ndev {ndev} {name}: the slab smoother differs from the global fused_smooth")
+            w = cuda_shard.halo_width(kw["colors"], kw.get("residual", False))
+            slab = rows // ndev
+            ops = dist_poisson._split_op(mesh, op_p, slab)
+            op_ext = dist_poisson._extend_op(mesh, ops, w)
+            bs = mesh_mod.scatter_rows(mesh, b_p, slab)
+            xs = mesh_mod.scatter_rows(mesh, kw_p["x0"], slab) if "x0" in kw else None
+            x_ext = mesh_mod.extend_x(mesh, xs, w) if xs is not None else [None] * ndev
+            kernel_is_twin(op_ext, mesh_mod.extend_x(mesh, bs, w), x_ext, dict(kw), f"ndev {ndev} {name}")
+            if ndev == MESH_NDEV:
+                def global_call():
+                    cuda_vcycle.fused_smooth_cuda(op_p, b_p, **kw_p)
+
+                def slab_call():
+                    cuda_shard.fused_smooth_local(mesh, ops, bs, xs, kw["colors"], kw.get("residual", False),
+                                                  op_ext=op_ext)
+
+                ms = [time_ms(fn, 50) for fn in (global_call, slab_call, slab_call, global_call)]
+                gb = smooth_bound(op_p, kw_p)
+                sb = sum(smooth_bound(o, dict(kw, x0=xe) if xe is not None else kw)[0]
+                         for o, xe in zip(op_ext, x_ext))
+                log(f"  ndev {ndev} {name} ({rows} rows, slabs of {slab} + 2 x {w}): torch.equal to the global "
+                    f"kernel; device ms in turns: global {ms[0]:.4f}, slabs {ms[1]:.4f}, slabs {ms[2]:.4f}, "
+                    f"global {ms[3]:.4f}; slabs / global {(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}; bound global "
+                    f"{gb[0]:.4f} ({gb[1]}), the {ndev} extended slabs {sb:.4f}")
+        log(f"  ndev {ndev}: NX {plan.NX}; the slab smoother torch.equal to the global fused_smooth at all "
+            f"{len(cases)} phases, the kernel bitwise its twin on every extended slab")
+
+    mesh = slab_mesh(MESH_NDEV)
+    plan = dist_poisson.make_plan(*op.aC.shape, MESH_NDEV)
+    levels, _ = dist_poisson.build_hierarchy_sharded(mesh, op)
+    row = None
+    for lvl, level in enumerate(levels):
+        mx, cols = plan.mx[lvl], plan.ny[lvl]
+        pad = mx * MESH_NDEV - plan.n_real[lvl]
+        planes = [torch.nn.functional.pad(random_field((plan.n_real[lvl], cols), seed + lvl, torch.float32, device),
+                                          (0, 0, 0, pad)) for seed in (400, 500)]
+        bs, xs = (mesh_mod.scatter_rows(mesh, a, mx) for a in planes)
+        for what, kw in (("pre+residual", dict(colors=(True, False) * 2, residual=True)),
+                         ("post", dict(colors=(False, True) * 2))):
+            w = cuda_shard.halo_width(kw["colors"], kw.get("residual", False))
+            op_ext = level.extended(mesh, w)
+            b_ext = mesh_mod.extend_x(mesh, bs, w)
+            x_ext = mesh_mod.extend_x(mesh, xs, w) if what == "post" else [None] * MESH_NDEV
+            shape = tuple(b_ext[0].shape)
+            kernel_is_twin(op_ext, b_ext, x_ext, kw, f"mesh level {lvl} {what} {shape[0]}x{shape[1]}")
+            log(f"  ndev {MESH_NDEV} level {lvl} {what}: {MESH_NDEV} extended slabs of {shape[0]} x {shape[1]} "
+                f"({mx} + 2 x {w} rows, {len(boxmg.coefs(op_ext[0]))}-point): the kernel torch.equal to its twin")
+            if lvl == 0 and what == "pre+residual":
+                tk = statistics.mean(time_ms(lambda o=o, be=be: cuda_vcycle.fused_smooth_cuda(o, be, **kw),
+                                             50, kernel=True) for o, be in zip(op_ext, b_ext))
+                tt = statistics.mean(time_ms(lambda o=o, be=be: cuda_vcycle.fused_smooth_twin(o, be, **kw), 10)
+                                     for o, be in zip(op_ext, b_ext))
+                sb = [smooth_bound(o, kw) for o in op_ext]
+                row = (tk, tt, statistics.mean(s[0] for s in sb), sb[0][1])
+                log(f"  fused_smooth_local, one extended slab of level 0 {what} ({shape[0]} x {shape[1]}): kernel "
+                    f"{tk:.4f} ms, twin {tt:.4f} ms, bound {row[2]:.4f} ms ({row[3]})")
+    log(f"  ndev {MESH_NDEV}: the kernel bitwise its twin on every slab of all {plan.L_dist} distributed levels, "
+        "both phases")
+    return row
+
+
+def bench_pressure_operator(device, g, cfg, vf0, dtype=torch.float32):
+    """The pressure operator of the bench's initial densities."""
+    from fluidsolver_tpu_torch.poisson import linsys
+    from fluidsolver_tpu_torch.solvers import twophase
+
+    state = twophase.init_two_phase_state(g, cfg, vf0, dtype, device)
+    return linsys.assemble_pressure_operator(state.flow.rho_u, state.flow.rho_v, g.dx, g.dy, cfg.pressure_pin)
+
+
+def mesh_levels_phase(device, op) -> None:
+    """Phase 14b: the distributed levels, gathered and cropped to their real
+    rows, torch.equal to the single-device fused_rap levels
+    (build_hierarchy(tail=False)) at levels 0..L_dist, ndev 2 and 4."""
+    from fluidsolver_tpu_torch.parallel import dist_poisson
+    from fluidsolver_tpu_torch.poisson import boxmg
+
+    single = boxmg.build_hierarchy(op, tail=False)
+    for ndev in (2, MESH_NDEV):
+        mesh = slab_mesh(ndev)
+        plan = dist_poisson.make_plan(*op.aC.shape, ndev)
+        levels, tail = dist_poisson.build_hierarchy_sharded(mesh, op)
+        for lvl in range(plan.L_dist + 1):
+            src = levels[lvl].op if lvl < plan.L_dist else [tail[0].op]
+            for name in boxmg.COEF_NAMES[:len(boxmg.coefs(src[0]))]:
+                got = torch.cat([getattr(o, name) for o in src])[:plan.n_real[lvl]]
+                require(torch.equal(got, getattr(single[lvl].op, name)),
+                        f"ndev {ndev}: distributed level {lvl} {name} differs from the single-device build")
+        log(f"  ndev {ndev}: NX {plan.NX}, L_dist {plan.L_dist}, slab rows {plan.mx}; levels 0..{plan.L_dist} "
+            f"torch.equal to the single-device build on their real rows ({plan.n_real}); the gathered tail "
+            f"{len(tail)} level(s) from {tuple(tail[0].op.aC.shape)}")
+
+
+def mesh_solve_phase(device, op) -> None:
+    """Phase 14c: solve_pcg_sharded against cg.solve_pcg(precond="boxmg")
+    on the bench's pressure operator (1026^2, f32, tol 1e-6, V(2,2)), ndev 2
+    and 4: iterations within 1, both relative residuals at most tol, the
+    solutions within 10 tol of the largest value; a prebuilt hierarchy
+    (the same iterations, torch.equal x) and a warm start (x0 from a 1e-3
+    solve); one counted host read per iteration and one for the exit."""
+    from fluidsolver_tpu_torch.core import sync
+    from fluidsolver_tpu_torch.parallel import dist_poisson
+    from fluidsolver_tpu_torch.poisson import cg, linsys
+
+    tol, kw = 1e-6, dict(max_iter=100, singular=True, n_pre=2, n_post=2)
+    div = random_field(tuple(op.aC.shape), 77, torch.float32, device)
+    n = op.aC.shape[0] - 2
+    rhs = linsys.build_pressure_rhs(div, 1.0 / n, 1.0 / n, 1e-3, None)
+    x0 = cg.solve_pcg(op, rhs, tol=1e-3, precond="boxmg", **kw)[0]
+
+    def centred(x):
+        return x - x.mean()
+
+    for warm in (None, x0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs, rs, its = cg.solve_pcg(op, rhs, tol=tol, precond="boxmg", x0=warm, **kw)
+        torch.cuda.synchronize()
+        t_single = time.perf_counter() - t0
+        for ndev in (2, MESH_NDEV):
+            mesh = slab_mesh(ndev)
+            s0 = sync.count
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xd, rd, itd = dist_poisson.solve_pcg_sharded(mesh, op, rhs, tol=tol, x0=warm, **kw)
+            torch.cuda.synchronize()
+            t_mesh, reads = time.perf_counter() - t0, sync.count - s0
+            err = float((centred(xd) - centred(xs)).abs().max() / centred(xs).abs().max())
+            what = f"ndev {ndev} {'warm' if warm is not None else 'cold'}"
+            log(f"  {what}: iterations mesh {itd}, single {its}; rel mesh {float(rd):.3e}, single {float(rs):.3e}; "
+                f"max|x_mesh - x_single| / max|x| {err:.3e}; host reads {reads}; wall s mesh {t_mesh:.3f}, "
+                f"single {t_single:.3f}")
+            require(abs(itd - its) <= 1, f"{what}: iterations {itd} against {its}")
+            require(float(rd) <= tol and float(rs) <= tol, f"{what}: a residual above tol")
+            require(err <= 10 * tol, f"{what}: solutions differ by {err:.3e}")
+            require(reads == itd + (itd < kw["max_iter"]), f"{what}: {reads} host reads for {itd} iterations")
+            if warm is None:
+                levels = dist_poisson.build_hierarchy_sharded(mesh, op)
+                xp, _, itp = dist_poisson.solve_pcg_sharded(mesh, op, rhs, tol=tol, levels=levels, **kw)
+                require(itp == itd and torch.equal(xp, xd), f"{what}: the prebuilt hierarchy's solve differs")
+                log(f"  {what}: the prebuilt hierarchy's solve torch.equal, {itp} iterations")
+
+
+def mesh_cross_check(device, g, cfg, vf0, n_steps: int, what: str, make_state=None) -> None:
+    """The mesh step on the card (4 slabs) against the mesh step on the CPU
+    (SlabMesh(["cpu"] * 4)), f64, ``n_steps`` steps: U, V, p and vf within
+    1e-9 of their scale, the same p_iter each step."""
+    from fluidsolver_tpu_torch.parallel.mesh import SlabMesh
+    from fluidsolver_tpu_torch.solvers import twophase
+
+    cpu = torch.device("cpu")
+    runs = {}
+    for dev, mesh in ((device, slab_mesh(MESH_NDEV)), (cpu, SlabMesh([cpu] * MESH_NDEV))):
+        state = (make_state(dev) if make_state is not None
+                 else twophase.init_two_phase_state(g, cfg, vf0, torch.float64, dev))
+        step = twophase.make_step(g, cfg, torch.float64, dev, mesh=mesh)
+        iters = []
+        for _ in range(n_steps):
+            state = step(state, 1e9)
+            iters.append(int(state.flow.p_iter))
+        runs[dev] = (state, iters)
+    (sg, ig), (sc, ic) = runs[device], runs[cpu]
+    rels = {k: float((a.cpu() - b).abs().max() / (b.abs().max() or 1.0))
+            for k, a, b in (("U", sg.flow.U, sc.flow.U), ("V", sg.flow.V, sc.flow.V), ("p", sg.flow.p, sc.flow.p),
+                            ("vf", sg.vf, sc.vf))}
+    log(f"  {what}: p_iter per step gpu {ig}, cpu {ic}; max|gpu - cpu| / max|cpu|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()))
+    require(ig == ic, f"{what}: p_iter differs between the card and the CPU")
+    require(all(v <= 1e-9 for v in rels.values()), f"{what}: a field differs by more than 1e-9")
+
+
+def flagship_case(n: int = 48):
+    """The JAX tests' flagship drop (__graft_entry__._flagship): the bench
+    configuration at n^2 without the loose intermediate tolerance."""
+    g, cfg = bench_case(n)
+    return g, dataclasses.replace(cfg, pressure_tol_intermediate=None)
+
+
+def mesh_cross_check_phase(device) -> None:
+    """Phase 14d: GPU against CPU, f64, the mesh step (4 slabs) on
+    two_phase_channel(ny=16) at tol 1e-11 (1e-9 intermediate), 3 steps, and
+    on the flagship drop at n=48 (tol 1e-6), 3 steps."""
+    from fluidsolver_tpu_torch.cases import get_case
+
+    case = get_case("two_phase_channel", ny=16)
+    cfg = dataclasses.replace(case.cfg, pressure_tol=1e-11, pressure_tol_intermediate=1e-9)
+    mesh_cross_check(device, case.grid, cfg, None, 3, "two_phase_channel(16) tol 1e-11",
+                     make_state=lambda dev: case.make_state(torch.float64, dev))
+    g, cfg = flagship_case(48)
+    mesh_cross_check(device, g, cfg, bench_vf0(g), 3, "flagship drop n=48 tol 1e-6")
+
+
+def expected_mesh_launches(plan, tail_shape, ndev: int, n_steps: int, iters: list, n_subiter: int) -> dict:
+    """The launches of the mesh bench step: one distributed hierarchy a step
+    (fused_rap on every slab of every distributed level, then the gathered
+    tail's build), one V-cycle per solve and PCG iteration (two slab phases
+    a slab and distributed level, the tail), one overlap a shard, no fused
+    PCG kernel."""
+    solves = n_steps * n_subiter
+    cycles = sum(iters) + solves
+    n_above = above_tail_levels(tail_shape)
+    local = 2 * plan.L_dist * ndev * cycles
+    return {"elvira": n_steps, "curvature": n_steps, "overlap": ndev * n_steps,
+            "fused_rap": (plan.L_dist * ndev + n_above) * n_steps, "tail_setup": n_steps, "tail_cycle": cycles,
+            "fused_smooth_local": local, "fused_smooth": local + 2 * n_above * cycles,
+            "step_ab": 0, "step_c": 0, "step_init": 0, "fused_momentum": solves, "rb_sweep": 0}
+
+
+MESH_STEP = ("fused_smooth_local", "fused_smooth", "tail_cycle", "tail_setup", "fused_rap", "fused_momentum",
+             "elvira", "curvature", "overlap")
+
+
+def mesh_bench_phase(device, g, cfg, vf0) -> dict:
+    """Phase 14e: the mesh step at full width, the bench configuration
+    (1024^2, f32) on 4 slabs: step 1 against the single-device step (vf
+    within 1e-5, each solve's iterations within 1); 10 steps with the
+    launch counts set to 0 before the first and read after the last (every
+    kernel of the path launched, the exact counts), no NaN, vf in
+    [-1e-5, 1 + 1e-5], max|div| below 1e-3, host reads exactly 1 + p_iter
+    + one a solve below the cap each step; ms/step beside 10 single-device
+    steps; a 3-step profile (idle share). Returns the launches."""
+    from fluidsolver_tpu_torch.ops import stencil
+    from fluidsolver_tpu_torch.parallel import dist_poisson
+    from fluidsolver_tpu_torch.solvers import twophase
+
+    mesh = slab_mesh(MESH_NDEV)
+    log(f"  slab devices {[str(d) for d in mesh.devices]}")
+    state0 = twophase.init_two_phase_state(g, cfg, vf0, torch.float32, device)
+    first = {}
+    for label, m in (("single", None), ("mesh", mesh)):
+        solves = []
+        with recorded_solves(solves):
+            out = twophase.make_step(g, cfg, torch.float32, device, mesh=m)(state0, 1e9)
+        first[label] = (out, [it for _, it, _ in solves])
+    dvf = float((first["mesh"][0].vf - first["single"][0].vf).abs().max())
+    log(f"  step 1: iterations per solve mesh {first['mesh'][1]}, single {first['single'][1]}; "
+        f"max|vf_mesh - vf_single| {dvf:.3e}")
+    require(dvf <= 1e-5, f"step 1: vf differs from the single-device step by {dvf:.3e}")
+    require(len(first["mesh"][1]) == len(first["single"][1]) == cfg.num_subiter
+            and all(abs(a - b) <= 1 for a, b in zip(first["mesh"][1], first["single"][1])),
+            "step 1: a solve's iterations differ from the single-device step's by more than 1")
+
+    n_steps = 10
+    log("  the single-device step, 10 steps:")
+    drive_bench(device, g, cfg, vf0, n_steps)
+    log(f"  the mesh step ({MESH_NDEV} slabs), 10 steps:")
+    syncs, solves = [], []
+    with recorded_solves(solves):
+        step, state, launches, iters = drive_bench(device, g, cfg, vf0, n_steps, syncs_out=syncs, mesh=mesh)
+    per_step = [[it for _, it, _ in solves[k * cfg.num_subiter:(k + 1) * cfg.num_subiter]] for k in range(n_steps)]
+    rule = [1 + sum(its) + sum(it < cfg.pressure_max_iter for it in its) for its in per_step]
+    log(f"  host reads per step {syncs}; 1 + p_iter + solves below the cap {rule}")
+    require(syncs == rule, "the mesh step's host reads differ from the single-device rule")
+    div = stencil.divergence(state.flow.U, state.flow.V, g.dx, g.dy)[1:-1, 1:-1]
+    require(float(div.abs().max()) < 1e-3, "mesh step: max|div| >= 1e-3")
+    plan = dist_poisson.make_plan(g.nx + 2, g.ny + 2, MESH_NDEV)
+    tail_shape = (plan.n_real[plan.L_dist], plan.ny[plan.L_dist])
+    expected = expected_mesh_launches(plan, tail_shape, MESH_NDEV, n_steps, iters, cfg.num_subiter)
+    per = {k: launches.get(k, 0) / n_steps for k in MESH_STEP}
+    log(f"  launches per step: {per}; expected in 10 steps {expected}")
+    for name in MESH_STEP:
+        require(launches.get(name, 0) > 0, f"kernel {name} was not launched on the mesh path")
+    require(all(launches.get(k, 0) == v for k, v in expected.items()), "the mesh step's launch counts differ")
+
+    holder = [state]
+
+    def one():
+        holder[0] = step(holder[0], 1e9)
+
+    by_name, busy, wall_us, ranges = profile_steps(one, 3)
+    log(f"  3 profiled mesh steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
+        f"{1 - busy / wall_us:.3f}; pressure solves {ranges.get(twophase.PRESSURE_RANGE, 0.0) / 1e3:.4f} ms, "
+        f"VOF stage {ranges.get(twophase.VOF_RANGE, 0.0) / 1e3:.4f} ms")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"    {t / 1e3:9.4f}  {c:5d}  {name}")
+    return launches
+
+
+def mesh_overflow_phase(device, g, vf0) -> None:
+    """Phase 14f: a lane budget below a shard's active set gives an
+    infinite volume error on the card."""
+    from fluidsolver_tpu_torch.parallel import dist_vof
+    from fluidsolver_tpu_torch.vof import plic
+
+    vf = torch.as_tensor(vf0, dtype=torch.float32, device=device)
+    U, V, Ui, Vi = swirl_velocity(g, torch.float32, device)
+    rec = plic.elvira(vf, g.dx, g.dy)
+    _, err = dist_vof.advect_sharded(slab_mesh(MESH_NDEV), vf, rec, U, V, Ui, Vi, g, 0.4 * g.dx, m_total=16)
+    log(f"  a budget of 16 lanes (4 a shard): volume error {float(err)}")
+    require(math.isinf(float(err)), "a shard's lane overflow did not give an infinite volume error")
+
+
+def mesh_phase(device, errors: Errors, g, cfg, vf0) -> tuple:
+    """Phase 14; returns (fused_smooth_local's times, the mesh step's
+    launches)."""
+    op = bench_pressure_operator(device, g, cfg, vf0)
+    log("phase 14a: the slab smoother against the global fused_smooth, ndev 2, 4, 8, and the kernel against its "
+        "twin on the mesh path's slabs, f32")
+    row = mesh_smoother_phase(device, errors, op)
+    log("phase 14b: the distributed levels against the single-device build, 1026^2 f32")
+    mesh_levels_phase(device, op)
+    log("phase 14c: solve_pcg_sharded against cg.solve_pcg on the bench's operator, 1026^2 f32, tol 1e-6")
+    mesh_solve_phase(device, op)
+    log("phase 14d: the mesh step, GPU against CPU, f64")
+    mesh_cross_check_phase(device)
+    log("phase 14e: the mesh step at full width, the bench configuration on 4 slabs, 1024^2 f32")
+    launches = mesh_bench_phase(device, g, cfg, vf0)
+    log("phase 14f: a shard's lane overflow")
+    mesh_overflow_phase(device, g, vf0)
+    return row, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3535,6 +4056,9 @@ def main(argv=None) -> int:
         log('phase 4f: pressure_precond_dtype="bfloat16", f64, 3 steps, GPU vs CPU: two_phase_channel(16) on '
             'BoxMG and "mg", lid_driven(64) on "mg"')
         bf16_cross_check_phase(device)
+        phase = "4g extrapolation and MLS cross-check"
+        log("phase 4g: ops/extrapolate.py and ib/mls.py, f64, GPU vs CPU at the CPU tests' sizes")
+        extrapolate_mls_phase(device)
 
         phase = "5 full size"
         log("phase 5: lid_driven(1024) f32, 20 steps on the card")
@@ -3573,6 +4097,10 @@ def main(argv=None) -> int:
         log("phase 13: the DFG cases at 2403 x 448 and immersed_interface(1024) through the driver, f32, "
             "10 steps each")
         dfg_phase(device)
+        phase = "14 the x-slab mesh"
+        log(f"phase 14: the x-slab mesh (kernel #1 on slabs, the distributed BoxMG-PCG, the sharded advection, "
+            f"the mesh step) on {torch.cuda.device_count()} card(s)")
+        local_times, mesh_launches = mesh_phase(device, errors, g_bench, cfg_bench, vf_bench)
     except Exception as exc:  # report the phase, then fail
         print(f"chip_smoke: phase {phase} FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         import traceback
@@ -3597,6 +4125,16 @@ def main(argv=None) -> int:
         next(e for e in kernels if e["name"] == k)["bf16"] = {
             "launches": bf16_launches[run], "max_abs_err": errors.max_abs[k + "_bf16"], "ms": t[0],
             "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+    # kernel #1 on the mesh step's slabs (parallel/cuda_shard.py): its
+    # launches on phase 14e's run, its time on one slab of the 1026^2
+    # pre-smoothing phase (phase 14a)
+    kernels.append({
+        "name": "fused_smooth_local", "route": "cuda", "source": REPLACES["fused_smooth"][0],
+        "wrapper": "fluidsolver_tpu_torch/parallel/cuda_shard.py",
+        "replaces": "fluidsolver_tpu/parallel/pallas_shard.py:56", "launches": mesh_launches["fused_smooth_local"],
+        "max_abs_err": errors.max_abs["fused_smooth_local"], "ms": local_times[0], "plain_ms": local_times[1],
+        "bound_ms": local_times[2], "bound_by": local_times[3], "library_ms": None,
+        "mesh_step_launches": {k: mesh_launches.get(k, 0) for k in MESH_STEP}})
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

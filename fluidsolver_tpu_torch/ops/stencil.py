@@ -60,21 +60,27 @@ def grad_centered(f: torch.Tensor, dx: float, dy: float):
 
 
 # ---- point sampling ---------------------------------------------------------
-def _bilinear_indices(pos, g0: float, delta: float, n: int):
+def _bilinear_indices(pos, g0: float, delta: float, n: int, clamp=None):
     """Lower and upper interior cell indices of the bilinear stencil at
     ``pos``, clamped to [0, n) (constant extrapolation outside). The offset
     is divided by a 0-d tensor: CUDA divides by a Python scalar as a
     multiplication by its reciprocal, which can leave a point on a node
     half an ulp below the integer, and ``floor(q + 1)`` then skips a cell
     (the JAX package's expression, kept); a true division rounds alike on
-    the CPU and the card."""
+    the CPU and the card.
+
+    ``clamp``: (g0_dom, n_dom, i0), the global domain of a slab's samples
+    (see :func:`sample_centered_stack`); the tests and the clamped indices
+    are then the domain's, [i0, i0 + n_dom)."""
     q = (pos - g0) / torch.full((), delta, dtype=pos.dtype, device=pos.device)
     prev = torch.floor(q).to(torch.int64)
     nxt = torch.floor(q + 1.0).to(torch.int64)
-    lo = (pos <= g0) | (prev < 0)
-    hi = (pos >= g0 + (n - 1) * delta) | (nxt >= n)
-    prev = torch.where(lo, 0, torch.where(hi, n - 1, prev))
-    nxt = torch.where(lo, 0, torch.where(hi, n - 1, nxt))
+    g0_dom, n_dom, i0 = (g0, n, 0) if clamp is None else clamp
+    lo = (pos <= g0_dom) | (prev < i0)
+    hi = (pos >= g0_dom + (n_dom - 1) * delta) | (nxt >= i0 + n_dom)
+    lo_i, hi_i = i0, i0 + n_dom - 1
+    prev = torch.where(lo, lo_i, torch.where(hi, hi_i, prev))
+    nxt = torch.where(lo, lo_i, torch.where(hi, hi_i, nxt))
     return prev, nxt
 
 
@@ -91,10 +97,20 @@ def sample_centered(field, x0: float, dx: float, y0: float, dy: float, px, py):
     return sample_centered_stack(field[None], x0, dx, y0, dy, px, py)[0]
 
 
-def sample_centered_stack(fields, x0: float, dx: float, y0: float, dy: float, px, py):
+def sample_centered_stack(fields, x0: float, dx: float, y0: float, dy: float, px, py,
+                          x_clamp=None):
     """``sample_centered`` for a stack (F, nx+2, ny+2) of fields at the same
-    points; returns (F,) + px.shape."""
-    ip, inx = _bilinear_indices(px, x0, dx, fields.shape[1] - 2)
+    points; returns (F,) + px.shape.
+
+    ``x_clamp``: a slab's view (``parallel/dist_vof.py``), the tuple
+    (x0_dom, n_dom, i0_loc). ``fields`` is then an x-slab, extended with
+    halo rows, of a global array whose interior spans ``n_dom`` cells from
+    the first centre ``x0_dom``; global interior cell 0 sits at the slab's
+    interior index ``i0_loc`` and ``x0`` is the slab's shifted origin. The
+    clamp tests run against the global domain, so constant extrapolation at
+    the physical boundaries is the single-device sampler's, while the
+    indices stay local. None: clamp to this array's own extent."""
+    ip, inx = _bilinear_indices(px, x0, dx, fields.shape[1] - 2, x_clamp)
     jp, jnx = _bilinear_indices(py, y0, dy, fields.shape[2] - 2)
     f00 = fields[:, ip + 1, jp + 1]
     f10 = fields[:, inx + 1, jp + 1]

@@ -96,6 +96,46 @@ def make_m_inv(op: StencilOp, precond: str, levels=None, n_pre: int = 1, n_post:
     return M_inv, levels
 
 
+class Guards:
+    """The exit test, breakdown guard and best-iterate bookkeeping of a PCG
+    loop, shared by :func:`solve_pcg` and the distributed PCG
+    (``parallel/dist_poisson.py``). ``rel``: the initial relative residual
+    (0-d); ``x``: the initial iterate; ``select(ok, new, old)`` takes
+    ``new`` where the 0-d ``ok`` holds (``torch.where`` on one device, slab
+    by slab on a mesh). The warm-start test is not here: the single-device
+    solve makes it in kernel #7 (``cuda_cg.step_init``)."""
+
+    def __init__(self, rel, b_norm, x, select=torch.where):
+        # f32 recurrences hit a rounding floor that can sit above tol: stop
+        # once the residual has stalled for `window` iterations
+        self.window = 25 if torch.finfo(rel.dtype).bits <= 32 else 100
+        self.rel = self.best = rel
+        self.b_norm = b_norm
+        self.since = torch.zeros((), dtype=torch.int32, device=rel.device)
+        self.x_best = x
+        self.select = select
+
+    def running(self, tol: float) -> bool:
+        """Residual above ``tol``, b nonzero and no stall: one counted host
+        read (``core.sync``)."""
+        return sync.read((self.rel > tol) & (self.b_norm > 0.0) & (self.since < self.window))
+
+    def accept(self, pAp, rel_new, rz_new, new: tuple, old: tuple, rz):
+        """Take the update ``new`` = (x, r, p) over ``old`` unless pAp <= 0
+        or a value is non-finite: a rejected update keeps the last good
+        iterate and trips the stagnation exit. Returns (x, r, p, rz)."""
+        ok = (pAp > 0.0) & torch.isfinite(rel_new) & torch.isfinite(rz_new)
+        x, r, p = (self.select(ok, a, c) for a, c in zip(new, old))
+        rz = torch.where(ok, rz_new, rz)
+        self.rel = torch.where(ok, rel_new, self.rel)
+        improved = ok & (self.rel < self.best * 0.9999)
+        self.best = torch.minimum(self.best, self.rel)
+        self.since = torch.where(improved, torch.zeros_like(self.since),
+                                 torch.where(ok, self.since + 1, torch.full_like(self.since, self.window)))
+        self.x_best = self.select(self.rel <= self.best, x, self.x_best)
+        return x, r, p, rz
+
+
 def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singular: bool,
               precond: str = "mg", n_pre: int = 1, n_post: int = 1,
               x0: Optional[torch.Tensor] = None, levels=None, precond_dtype=None):
@@ -104,9 +144,9 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
     Returns (x, rel_residual, iterations): ``rel_residual`` a 0-d tensor,
     ``iterations`` an int. The warm start is guarded (discarded if
     ||b - A x0|| >= ||b||). The loop stops at ``tol``, at ``max_iter``, on a
-    stagnation window (no 0.01% improvement for STAG_WINDOW iterations),
-    or on a breakdown (non-positive pAp or a non-finite value), and returns
-    the best iterate seen. ``precond_dtype``: the V-cycle's storage dtype
+    stagnation window (no 0.01% improvement for 25 iterations in f32, 100 in
+    f64), or on a breakdown (non-positive pAp or a non-finite value), and
+    returns the best iterate seen (:class:`Guards`). ``precond_dtype``: the V-cycle's storage dtype
     (see :func:`make_m_inv`).
 
     The JAX package reaches its fused init (``step_init``) only under its
@@ -118,39 +158,18 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
     def project(v):
         return v - torch.mean(v) if singular else v
 
-    # f32 recurrences hit a rounding floor that can sit above tol: stop
-    # once the residual has stalled for STAG_WINDOW iterations
-    STAG_WINDOW = 25 if torch.finfo(b.dtype).bits <= 32 else 100
-
     x, r, bb, rr, sum_r = cuda_cg.step_init(op, b, None if x0 is None else x0.to(b.dtype), singular)
     b_norm = torch.sqrt(bb)
     safe_b_norm = torch.where(b_norm > 0.0, b_norm, torch.ones_like(b_norm))
-    rel = torch.sqrt(rr) / safe_b_norm
     _, p, rz = cuda_cg.step_c(r, M_inv(r), None, torch.ones_like(bb), singular, sum_r=sum_r)
-    best = rel
-    since = torch.zeros((), dtype=torch.int32, device=b.device)
-    x_best = x
+    guards = Guards(torch.sqrt(rr) / safe_b_norm, b_norm, x)
 
     k = 0
-    while k < max_iter:
-        if not sync.read((rel > tol) & (b_norm > 0.0) & (since < STAG_WINDOW)):
-            break
+    while k < max_iter and guards.running(tol):
         x_new, r_new, pAp, rr, sum_r = cuda_cg.step_ab(op, x, r, p, rz)
         _, p_new, rz_new = cuda_cg.step_c(r_new, M_inv(r_new), p, rz, singular, sum_r=sum_r)
         with record_function(GUARD_RANGE) if torch.autograd._profiler_enabled() else nullcontext():
-            rel_new = torch.sqrt(rr) / safe_b_norm
-            # breakdown guard: reject the update, keep the last good iterate
-            # and trip the stagnation exit
-            ok = (pAp > 0.0) & torch.isfinite(rel_new) & torch.isfinite(rz_new)
-            x = torch.where(ok, x_new, x)
-            r = torch.where(ok, r_new, r)
-            p = torch.where(ok, p_new, p)
-            rz = torch.where(ok, rz_new, rz)
-            rel = torch.where(ok, rel_new, rel)
-            improved = ok & (rel < best * 0.9999)
-            best = torch.minimum(best, rel)
-            since = torch.where(improved, torch.zeros_like(since),
-                                torch.where(ok, since + 1, torch.full_like(since, STAG_WINDOW)))
-            x_best = torch.where(rel <= best, x, x_best)
+            x, r, p, rz = guards.accept(pAp, torch.sqrt(rr) / safe_b_norm, rz_new, (x_new, r_new, p_new),
+                                        (x, r, p), rz)
         k += 1
-    return project(x_best), best, k
+    return project(guards.x_best), guards.best, k

@@ -70,11 +70,14 @@ def _periodic_axes(cfg: SolverConfig) -> tuple[bool, bool]:
 
 
 def pressure_solve(state: FlowState, div, dt, grid: Grid, cfg: SolverConfig,
-                   x0=None, levels=None, tol: Optional[float] = None):
+                   x0=None, levels=None, tol: Optional[float] = None, mesh=None):
     """Assemble and solve the pressure Poisson system; returns the gauge-
     shifted increment delta_p, the relative residual and the iterations
     (``direct``: 0 and 1). ``x0``: a warm-start guess; ``levels``: a
-    prebuilt hierarchy of ``cfg.pressure_solver``."""
+    prebuilt hierarchy of ``cfg.pressure_solver``; ``mesh``: a
+    ``parallel.mesh.SlabMesh``, which routes the solve through the
+    distributed BoxMG-PCG (``parallel/dist_poisson.py``; ``levels`` then
+    from :func:`build_step_levels_sharded`)."""
     _check_supported(cfg)
     if tol is None:
         tol = cfg.pressure_tol
@@ -84,7 +87,17 @@ def pressure_solve(state: FlowState, div, dt, grid: Grid, cfg: SolverConfig,
     rhs = linsys.build_pressure_rhs(div, grid.dx, grid.dy, dt, cfg.pressure_pin,
                                     periodic_x=per_x, periodic_y=per_y)
     singular = cfg.pressure_pin is None
-    if cfg.pressure_solver == "direct":
+    if mesh is not None:
+        if cfg.pressure_method != "pcg":
+            raise ValueError("multi-chip pressure solve supports pressure_method='pcg' "
+                             f"only (got {cfg.pressure_method!r})")
+        from fluidsolver_tpu_torch.parallel import dist_poisson
+
+        delta_p, rel, iters = dist_poisson.solve_pcg_sharded(
+            mesh, op, rhs, tol=tol, max_iter=cfg.pressure_max_iter, singular=singular,
+            n_pre=cfg.mg_pre, n_post=cfg.mg_post, x0=x0 if cfg.pressure_warm_start else None,
+            levels=levels)
+    elif cfg.pressure_solver == "direct":
         delta_p = solve_direct(op, rhs, singular)
         rel, iters = torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
     elif cfg.pressure_method == "pcg":
@@ -117,6 +130,19 @@ def build_step_levels(rho_u, rho_v, grid: Grid, cfg: SolverConfig):
         return None
     op = linsys.assemble_pressure_operator(rho_u, rho_v, grid.dx, grid.dy, cfg.pressure_pin)
     return cg.build_precond_levels(op, cfg.pressure_solver, cfg.pressure_precond_dtype)
+
+
+def build_step_levels_sharded(rho_u, rho_v, grid: Grid, cfg: SolverConfig, mesh):
+    """The mesh's :func:`build_step_levels`: the distributed BoxMG hierarchy
+    (``dist_poisson.build_hierarchy_sharded``) of the operator of these
+    densities, for ``pressure_solve(mesh=, levels=)``; None for a solver
+    without a hierarchy."""
+    if cfg.pressure_solver not in ("mg", "boxmg"):
+        return None
+    from fluidsolver_tpu_torch.parallel import dist_poisson
+
+    op = linsys.assemble_pressure_operator(rho_u, rho_v, grid.dx, grid.dy, cfg.pressure_pin)
+    return dist_poisson.build_hierarchy_sharded(mesh, op)
 
 
 def project_velocity(U, V, delta_p, rho_u, rho_v, dt, dx: float, dy: float):

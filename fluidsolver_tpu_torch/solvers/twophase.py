@@ -25,7 +25,16 @@ or "boxmg") inside every solve; "step" builds it once per step from
 subiteration 0's transported densities and reuses it for the rest; a
 solver without a hierarchy has none to build; with
 ``pressure_precond_dtype`` ("bfloat16") it is built and cast once a step.
-Other refresh policies and a mesh raise.
+Other refresh policies raise.
+
+``make_step(mesh=)`` takes a ``parallel.mesh.SlabMesh`` (the JAX
+package's x-slab ``jax.sharding.Mesh``): the pressure solve runs the
+distributed BoxMG-PCG of ``parallel/dist_poisson.py`` (with refresh "step"
+its hierarchy is built at subiteration 0 and carried), and the sparse
+advection runs slab by slab (``parallel/dist_vof.py``) when
+``vof_max_active`` is not 0, the trace is not staggered and the slabs are
+tall enough; otherwise the dense advection runs. Every other stage works
+on global fields on the mesh's first device, where the state lives.
 
 The step runs the reference's fused composition (its ``FS_PALLAS_CG`` and
 ``FS_PALLAS_MOMENTUM``): the fused PCG iteration (kernels 5-7, in
@@ -167,12 +176,22 @@ def _tangent_force_rhs(rec, dt, cfg: SolverConfig, grid: Grid):
 def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=None) -> Callable:
     """Build ``step(state, t_end) -> state`` for states of ``dtype`` on
     ``device``. The multigrid hierarchy depends on the transported
-    densities, so it is built inside the step (see the module doc)."""
-    if mesh is not None:
-        raise ValueError("the multi-device (mesh) step is not ported")
+    densities, so it is built inside the step (see the module doc).
+    ``mesh``: a ``parallel.mesh.SlabMesh`` whose first device is
+    ``device``; the step then makes the same host reads as without it."""
     incomp._check_supported(cfg)
     _check_supported(cfg)
     device = torch.device(device)
+    if mesh is not None and mesh.devices[0] != device:
+        raise ValueError(f"the state lives on the mesh's first device {mesh.devices[0]}, not {device}")
+    # under a mesh the sparse advection runs slab by slab where it can, and
+    # the dense one otherwise
+    vof_budget = 0 if mesh is not None else cfg.vof_max_active
+    vof_sharded = False
+    if mesh is not None and cfg.vof_max_active != 0 and not cfg.vof_staggered_backtrace:
+        from fluidsolver_tpu_torch.parallel import dist_vof
+
+        vof_sharded = dist_vof.available(grid, len(mesh))
     rho_eps = mom.calc_rho_eps(cfg.rho_gas, cfg.rho_liquid)
     gx, gy = cfg.gravity
     per_step = cfg.pressure_precond_refresh == "step"
@@ -224,10 +243,11 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
             tol = cfg.pressure_tol_intermediate
         with record_function(PRESSURE_RANGE):
             if per_step and k == 0:
-                levels = incomp.build_step_levels(rho_u, rho_v, grid, cfg)
+                levels = (incomp.build_step_levels(rho_u, rho_v, grid, cfg) if mesh is None else
+                          incomp.build_step_levels_sharded(rho_u, rho_v, grid, cfg, mesh))
             delta_p, rel, iters = incomp.pressure_solve(
                 fs, div, dt, grid, cfg, x0=dp_prev if cfg.pressure_warm_start else None,
-                levels=levels if per_step else None, tol=tol)
+                levels=levels if per_step else None, tol=tol, mesh=mesh)
         p = fs.p + delta_p
         U, V = incomp.project_velocity(U, V, delta_p, rho_u, rho_v, dt, grid.dx, grid.dy)
         fs = dataclasses.replace(fs, U=U, V=V, p=p, p_res=rel, p_iter=fs.p_iter + iters)
@@ -265,11 +285,17 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
                 stefan = cfg.phase_change_mdot * dt * (1.0 / cfg.rho_gas - 1.0 / cfg.rho_liquid)
                 rec = dataclasses.replace(rec, d=torch.where(rec.valid, rec.d - stefan, rec.d))
                 source = _phase_change_source(vf_old, m_dot_A, cfg, grid)
-            vf, vol_err = adv.advect(vf_old, rec, fs.U, fs.V, stencil.interp_u_center(fs.U),
-                                     stencil.interp_v_center(fs.V), grid, dt,
-                                     max_active=cfg.vof_max_active,
-                                     no_correction=cfg.vof_no_correction,
-                                     staggered=cfg.vof_staggered_backtrace)
+            Ui, Vi = stencil.interp_u_center(fs.U), stencil.interp_v_center(fs.V)
+            if vof_sharded:
+                vf, vol_err = dist_vof.advect_sharded(
+                    mesh, vf_old, rec, fs.U, fs.V, Ui, Vi, grid, dt,
+                    m_total=cfg.vof_max_active or adv.default_max_active(grid.nx, grid.ny),
+                    no_correction=cfg.vof_no_correction)
+            else:
+                vf, vol_err = adv.advect(vf_old, rec, fs.U, fs.V, Ui, Vi, grid, dt,
+                                         max_active=vof_budget,
+                                         no_correction=cfg.vof_no_correction,
+                                         staggered=cfg.vof_staggered_backtrace)
             vol_err = torch.where(rec.overflow, torch.full_like(vol_err, float("inf")), vol_err)
 
             # viscosity from the new vf; curvature and length from vf_old's planes
@@ -309,10 +335,11 @@ def run(state: TwoPhaseState, t_end: float, grid: Grid, cfg: SolverConfig,
 
 
 def make_fixed_runner(grid: Grid, cfg: SolverConfig, n_steps: int, dtype: torch.dtype,
-                      device) -> Callable:
+                      device, mesh=None) -> Callable:
     """Fixed-step runner (the JAX package's ``make_scan_runner``): ``n_steps``
-    steps; steps past ``t_end`` clamp to dt = 0."""
-    step = make_step(grid, cfg, dtype, device)
+    steps; steps past ``t_end`` clamp to dt = 0. ``mesh``: see
+    :func:`make_step`."""
+    step = make_step(grid, cfg, dtype, device, mesh=mesh)
 
     def run_n(state: TwoPhaseState, t_end: float) -> TwoPhaseState:
         for _ in range(n_steps):

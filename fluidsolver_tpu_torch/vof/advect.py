@@ -32,6 +32,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from fluidsolver_tpu_torch.constants import vf_cutoffs
 from fluidsolver_tpu_torch.core.fields import set_interior
@@ -43,14 +44,22 @@ K = 16  # vertex buffer size of the plain clip chain
 
 
 # ---- point backtracking -------------------------------------------------------
-def backtrack_rk4(px, py, Ui, Vi, grid: Grid, dt):
-    """RK4 backward trace through the cell-centered interpolated velocity."""
+def backtrack_rk4(px, py, Ui, Vi, grid: Grid, dt, shard=None):
+    """RK4 backward trace through the cell-centered interpolated velocity.
+
+    ``shard``: a slab's view (``parallel/dist_vof.ShardView``): Ui and Vi
+    are halo-extended x-slabs, sampled from the slab's shifted origin with
+    the global domain clamp (``stencil.sample_centered_stack(x_clamp=)``)."""
     x0 = float(grid.xm[1])
     y0 = float(grid.ym[1])
+    x_clamp = None
+    if shard is not None:
+        x_clamp = (x0, grid.nx, -shard.row_off)
+        x0 = x0 + shard.row_off * grid.dx
     UiVi = torch.stack([Ui, Vi])
 
     def vel(x, y):
-        uv = sample_centered_stack(UiVi, x0, grid.dx, y0, grid.dy, x, y)
+        uv = sample_centered_stack(UiVi, x0, grid.dx, y0, grid.dy, x, y, x_clamp=x_clamp)
         return uv[0], uv[1]
 
     u1, v1 = vel(px, py)
@@ -273,19 +282,32 @@ class Lanes:
     slots_y: torch.Tensor    # n0 = 8 (octagon) or 4 (quad, no_correction)
 
 
-def _backtrack(px, py, U, V, Ui, Vi, grid: Grid, dt, staggered: bool):
+def _backtrack(px, py, U, V, Ui, Vi, grid: Grid, dt, staggered: bool, shard=None):
     if staggered:
+        if shard is not None:
+            raise NotImplementedError("the slab view takes the cell-centred backtrace only")
         return backtrack_rk4_staggered(px, py, U, V, grid, dt)
-    return backtrack_rk4(px, py, Ui, Vi, grid, dt)
+    return backtrack_rk4(px, py, Ui, Vi, grid, dt, shard=shard)
+
+
+def owned_rows(nx: int, grid: Grid, shard, device) -> torch.Tensor:
+    """(nx,) bool: the slab's interior rows that its shard owns (each
+    global cell is owned by one shard; halo rows and rows beyond the grid
+    are not)."""
+    ig = torch.arange(nx, device=device) + shard.row_off
+    return (ig >= shard.own_lo) & (ig < shard.own_hi) & (ig >= 0) & (ig < grid.nx)
 
 
 def prepare_lanes(vf_old, U, V, Ui, Vi, grid: Grid, dt, m: int, no_correction: bool = False,
-                  staggered: bool = False) -> Lanes:
+                  staggered: bool = False, shard=None) -> Lanes:
     """Classify, compact the active cells into ``m`` lanes and build each
-    lane's backtracked start polygon."""
-    nx, ny = grid.nx, grid.ny
+    lane's backtracked start polygon. ``shard``: a slab's view (see
+    :func:`advect`); the lanes are then the owned rows' active cells."""
+    nx, ny = vf_old.shape[0] - 2, vf_old.shape[1] - 2
     all_gas, all_liq = classify(vf_old)
     active = ~(all_gas | all_liq)
+    if shard is not None:
+        active = active & owned_rows(nx, grid, shard, active.device)[:, None]
     lin = compact_indices(active, m)
     is_fill = lin >= nx * ny
     ii = torch.where(is_fill, nx * ny, lin // ny)
@@ -294,11 +316,13 @@ def prepare_lanes(vf_old, U, V, Ui, Vi, grid: Grid, dt, m: int, no_correction: b
 
     # per-lane corners, backtracked; then cell-local coordinates
     gx, gy = _corner_coords(grid, vf_old.dtype, vf_old.device)
-    x_lo_c, x_hi_c = gx[iig], gx[iig + 1]
+    # the lanes' global rows (a slab's local rows shifted by its offset)
+    ig = iig if shard is None else torch.clamp(iig + shard.row_off, 0, grid.nx - 1)
+    x_lo_c, x_hi_c = gx[ig], gx[ig + 1]
     y_lo_c, y_hi_c = gy[jjg], gy[jjg + 1]
     px = torch.stack([x_lo_c, x_hi_c, x_hi_c, x_lo_c], dim=-1)
     py = torch.stack([y_lo_c, y_lo_c, y_hi_c, y_hi_c], dim=-1)
-    AX, AY = _backtrack(px, py, U, V, Ui, Vi, grid, dt, staggered)
+    AX, AY = _backtrack(px, py, U, V, Ui, Vi, grid, dt, staggered, shard)
     ax = AX - x_lo_c[:, None]
     ay = AY - y_lo_c[:, None]
     slots_x, slots_y = start_slots(
@@ -310,19 +334,29 @@ def prepare_lanes(vf_old, U, V, Ui, Vi, grid: Grid, dt, m: int, no_correction: b
 
 
 def advect(vf_old, rec: Plic, U, V, Ui, Vi, grid: Grid, dt, max_active=None,
-           no_correction: bool = False, staggered: bool = False):
+           no_correction: bool = False, staggered: bool = False, shard=None):
     """One unsplit geometric advection of the VOF field. Returns (vf_new,
     max volume error). ``max_active``: the lane budget of the sparse path
     (None = ``default_max_active``); the error is inf when the active set
-    outgrows it. 0 runs the dense all-cells path."""
+    outgrows it. 0 runs the dense all-cells path.
+
+    ``shard``: a slab's view of the sparse path (``parallel/dist_vof.py``,
+    an object with ``row_off``, ``own_lo`` and ``own_hi``): every array is
+    a halo-extended x-slab of the global field whose local row 0 is global
+    row ``row_off``; the lanes are compacted from the owned interior cells
+    [own_lo, own_hi) only, their corners take global rows, the backtrace
+    clamps to the global domain, and the cells the shard does not own keep
+    their input values. ``max_active`` is then the shard's budget."""
     if max_active == 0:
+        if shard is not None:
+            raise ValueError("the slab view is the sparse path's")
         return advect_dense(vf_old, rec, U, V, Ui, Vi, grid, dt, no_correction, staggered)
     from fluidsolver_tpu_torch.vof import cuda_advect
 
-    nx, ny = grid.nx, grid.ny
+    nx, ny = vf_old.shape[0] - 2, vf_old.shape[1] - 2
     dx, dy = grid.dx, grid.dy
-    m = int(max_active or default_max_active(nx, ny))
-    lanes = prepare_lanes(vf_old, U, V, Ui, Vi, grid, dt, m, no_correction, staggered)
+    m = int(max_active or default_max_active(grid.nx, grid.ny))
+    lanes = prepare_lanes(vf_old, U, V, Ui, Vi, grid, dt, m, no_correction, staggered, shard)
     overlap, oct_area = cuda_advect.overlap(lanes.slots_x, lanes.slots_y, vf_old, rec,
                                             lanes.iig, lanes.jjg, dx, dy)
     volume_error = torch.abs(dx * dy - torch.abs(oct_area))
@@ -332,6 +366,12 @@ def advect(vf_old, rec: Plic, U, V, Ui, Vi, grid: Grid, dt, max_active=None,
     vf_new = torch.cat([lanes.all_liq.to(vf_old.dtype).reshape(-1), vf_old.new_zeros(1)])
     vf_new.scatter_(0, torch.where(lanes.is_fill, nx * ny, lanes.lin), vf_act)
     vf_out = set_interior(vf_old, vf_new[:-1].reshape(nx, ny))
+    if shard is not None:
+        # the cells of other shards (halo rows, rows beyond the grid) keep
+        # their input values: their owners compute them
+        owned = F.pad(owned_rows(nx, grid, shard, vf_old.device)[:, None].expand(nx, ny),
+                      (1, 1, 1, 1))
+        vf_out = torch.where(owned, vf_out, vf_old)
 
     lane_valid = torch.arange(m, device=vf_old.device) < lanes.n_active
     vol_err = torch.max(torch.where(lane_valid, volume_error, torch.zeros_like(volume_error)))

@@ -18,6 +18,7 @@ from fluidsolver_tpu.cases import get_case as jget_case
 from fluidsolver_tpu_torch.cases import get_case
 from fluidsolver_tpu_torch.core import sync
 from fluidsolver_tpu_torch.core.grid import make_grid
+from fluidsolver_tpu_torch.parallel.mesh import SlabMesh
 from fluidsolver_tpu_torch.solvers import twophase
 from fluidsolver_tpu_torch.solvers.config import config_from_jax
 from tests.golden_cases import two_phase_drop
@@ -123,9 +124,11 @@ def test_bf16_preconditioner_runs(refresh):
 
 
 def test_unsupported_entry_points_raise():
+    """The mesh step runs (tests/test_torch_parallel.py); a mesh whose
+    first device is not the state's device is refused."""
     case = get_case("stationary_drop", n=16)
-    with pytest.raises(ValueError):
-        twophase.make_step(case.grid, case.cfg, torch.float64, "cpu", mesh=object())
+    with pytest.raises(ValueError, match="first device"):
+        twophase.make_step(case.grid, case.cfg, torch.float64, "cpu", mesh=SlabMesh(["meta"] * 2))
 
 
 @pytest.mark.parametrize("name,kwargs", [
