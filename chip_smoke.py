@@ -98,9 +98,14 @@ result line):
      limits of its tiling (389 x 277 and 37 x 29 5-point, 195 x 139 and
      12 x 10 9-point, V(1,1), V(2,2), the deepest halos, the sweep pair),
      and rb_sweep in bf16 at every level of the bf16 "mg" hierarchies of
-     both boxes: each within one bf16 ulp of its twin (bitwise logged);
-     the bf16 V-cycle's launches timed beside the f32 kernel on the uncast
-     levels, rb_sweep bf16 beside f32 at 1026^2, with their bounds;
+     both boxes (both orders, zero and random x): each torch.equal to its
+     twin; the bf16 V-cycle's launches timed beside the f32 kernel on the
+     uncast levels, rb_sweep bf16 beside f32 at 1026^2, with their bounds;
+     with --parent DIR, the parent's bf16 kernels torch.equal to this
+     one's on every one of those inputs, and timed in turns (parent, this,
+     this, parent): rb_sweep at every "mg" level of the 1026^2 box and one
+     V-cycle's 52 launches, fused_smooth's 14 launches of one BoxMG cycle,
+     each with its bound;
   4. lid_driven(n=256), f64, pressure_tol=1e-11, 3 steps: the GPU (kernels)
      against the CPU (twins);
   4b. the golden two-phase drop (64^2, 15 steps, f64, tol 1e-10): GPU
@@ -186,8 +191,9 @@ result line):
      V-cycle; the bf16 rb_sweep on every "mg" level), host syncs exactly
      1 + p_iter + one a solve that ends before its cap, the solves at the
      cap or on the stagnation window (none non-finite), peak memory, a
-     profiler split; the bf16 set-up (the f32 build, the cast and the
-     dense coarse inverse) must not drain the stream;
+     profiler split; Σp_iter, the bf16 launches a step and their device ms
+     a step logged beside the recorded ones; the bf16 set-up (the f32 build,
+     the cast and the dense coarse inverse) must not drain the stream;
   13. the DFG 2D-1 cases (diffuse, sharp quadratic, Luchini) at ny=448
      (2403 x 448) through the driver, f32, 10 steps each, held as phase 11
      with C_D, C_L and dp reported; immersed_interface(n=1024) with 1287
@@ -283,8 +289,9 @@ FUSED = ("step_ab", "step_c", "step_init", "fused_momentum")
 BOXMG = ("fused_rap", "fused_smooth", "tail_setup", "tail_cycle")
 BOXMG_STEP = tuple(k for k in REPLACES if k != "rb_sweep")
 MG_STEP = tuple(k for k in REPLACES if k not in BOXMG)
-# the names the kernels carry in a profiler trace
-TRACE_NAMES = {k: k + "_kernel" for k in REPLACES}
+# the names the kernels carry in a profiler trace (the bf16 forms of #1
+# and #9 are kernels of their own)
+TRACE_NAMES = {k: (k + "_kernel", k + "_bf16_kernel") for k in REPLACES}
 # kernels redesigned as one launch per wrapper call (the profiler must see
 # one device kernel per call on the bench step)
 ONE_LAUNCH = ("step_ab", "step_c", "step_init", "tail_setup", "fused_rap", "elvira", "curvature", "overlap")
@@ -654,10 +661,7 @@ def parent_lib(parent: str) -> ctypes.CDLL:
     """The kernel library of another checkout ``parent`` (e.g. the parent
     commit unpacked by git archive), built from its csrc into _build/parent
     and bound like this commit's."""
-    from fluidsolver_tpu_torch.poisson import _kernels
-
-    return load_library(_kernels.build(csrc=Path(parent) / "fluidsolver_tpu_torch" / "csrc",
-                                       build_dir=_kernels.BUILD_DIR / "parent"))
+    return checkout_lib(parent, "parent")
 
 
 def load_library(so) -> ctypes.CDLL:
@@ -2298,7 +2302,7 @@ def full_size_phase(device) -> None:
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     pressure_kernels = ("fused_rap", "fused_smooth", "tail_setup", "tail_cycle")
-    counts = {k: sum(TRACE_NAMES[k] in n for n in names) for k in pressure_kernels}
+    counts = {k: sum(any(t in n for t in TRACE_NAMES[k]) for n in names) for k in pressure_kernels}
     log(f"  profiler: {len(names)} device events; our kernels: {counts}; "
         f"PCG iterations in the profiled step: {int(state.p_iter)}")
     require(len(names) > 0, "the profiler recorded no device events")
@@ -2343,7 +2347,7 @@ def profile_steps(run_step, n: int):
         if is_range(e.name):
             continue
         us = e.time_range.elapsed_us()
-        name = next((k for k, v in TRACE_NAMES.items() if v in e.name), e.name[:70])
+        name = next((k for k, v in TRACE_NAMES.items() if any(n in e.name for n in v)), e.name[:70])
         t, c = by_name.get(name, (0.0, 0))
         by_name[name] = (t + us, c + 1)
         for r in {r for r, start, end in spans if start <= e.time_range.start < end}:
@@ -2424,7 +2428,7 @@ def drive_bench(device, g, cfg, vf0, n_steps: int, syncs_out=None, mesh=None):
     return step, state, launches, iters
 
 
-def profile_bench(step, state, n: int, kernels) -> None:
+def profile_bench(step, state, n: int, kernels) -> tuple:
     """Profile ``n`` more steps: the wall and device time, the idle share, the
     device time of ``kernels``, of the VOF stage and the pressure solves, and
     the device time by kernel."""
@@ -2461,6 +2465,7 @@ def profile_bench(step, state, n: int, kernels) -> None:
     log("    device time by kernel (ms, launches):")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"    {t / 1e3:9.4f}  {c:5d}  {name}")
+    return by_name, busy
 
 
 def bench_phase(device, g, cfg, vf0) -> dict:
@@ -3109,93 +3114,55 @@ def bf16_inputs(shape, coarse, seed: int, device) -> tuple:
             random_field(coarse, seed + 2, torch.float32, device).to(bf))
 
 
-def bf16_phase(device, errors: Errors) -> dict:
-    """Phase 3e: the bf16 forms of kernels #1 and #9 against their twins.
-    fused_smooth (bf16 storage, f32 arithmetic) in its four forms at every
-    level above the coarsest of the bf16 BoxMG hierarchies of the 1026^2
-    and 1023 x 771 boxes and at the limits of its tiling, within one bf16
-    ulp (bitwise expected); rb_sweep (every operation in bf16) at every
-    level of the bf16 "mg" hierarchies of both boxes, both orders, from a
-    zero and a random x, within one ulp of the level's largest value
-    (bitwise expected). Times: each level's two V-cycle launches in bf16
-    beside the f32 kernel on the uncast level, and rb_sweep bf16 beside f32
-    at 1026^2, each with its bound (the bf16 bytes, f32 operations).
-    Returns name -> (kernel ms, twin ms, bound ms, bound by) of the bf16
-    forms at the main path's shapes."""
-    from fluidsolver_tpu_torch.poisson import boxmg, cuda_rap, cuda_smoother, cuda_vcycle, mg
+def bf16_mg_levels(shape, device) -> list:
+    """The bf16 "mg" hierarchy of the random jump operator of ``shape``
+    (the "mg" preconditioner's under pressure_precond_dtype="bfloat16":
+    built from the bf16 operator)."""
+    from fluidsolver_tpu_torch.poisson import boxmg, mg
+
+    op32 = random_operator(*shape, seed=13, dtype=torch.float32, device=device)
+    return mg.build_hierarchy(boxmg.cast_struct(op32, torch.bfloat16))
+
+
+def bf16_sweep_cases(mg_levels, device) -> list:
+    """rb_sweep's phase-3e inputs at every level of a bf16 "mg" hierarchy:
+    a zero and a random x, both orders: [(level shape, op, x0, b, reverse)]."""
+    out = []
+    for lvl, op in enumerate(mg_levels):
+        lshape = tuple(op.aC.shape)
+        b = random_field(lshape, 900 + lvl, torch.float32, device).to(torch.bfloat16)
+        for x0 in (torch.zeros_like(b), random_field(lshape, 950 + lvl, torch.float32, device).to(torch.bfloat16)):
+            for reverse in (False, True):
+                out.append((lshape, op, x0, b, reverse))
+    return out
+
+
+def bf16_smooth_cases(levels, device) -> list:
+    """fused_smooth's four forms at every smoothed level of a bf16 BoxMG
+    hierarchy: [(level index, level shape, form, op, b, kw)]."""
+    out = []
+    for lvl, level in enumerate(levels):
+        if level.tr is None:
+            continue
+        lshape = tuple(level.op.aC.shape)
+        b, x0, ec = bf16_inputs(lshape, tuple(level.tr.pW.shape), 800 + 3 * lvl, device)
+        for fname, kw in smooth_forms(level.tr, x0, ec).items():
+            out.append((lvl, lshape, fname, level.op, b, kw))
+    return out
+
+
+def bf16_limit_cases(device) -> list:
+    """fused_smooth's 40 bf16 cases at the limits of its tiling (four
+    levels, ten variants each): [(level name, variant, op, b, kw)]."""
+    from fluidsolver_tpu_torch.poisson import boxmg, cuda_rap
 
     bf = torch.bfloat16
-    times = {}
-    for shape, main in (((1026, 1026), True), ((1023, 771), False)):
-        tag = f"bf16 {shape[0]}x{shape[1]}"
-        levels32, levels = bf16_levels(shape, device)
-        bitwise, rows = True, []
-        for lvl, (l32, level) in enumerate(zip(levels32, levels)):
-            if level.tr is None:
-                continue
-            lshape = tuple(level.op.aC.shape)
-            b, x0, ec = bf16_inputs(lshape, tuple(level.tr.pW.shape), 800 + 3 * lvl, device)
-            forms = smooth_forms(level.tr, x0, ec)
-            for fname, kw in forms.items():
-                got = cuda_vcycle.fused_smooth_cuda(level.op, b, **kw)
-                want = cuda_vcycle.fused_smooth_twin(level.op, b, **kw)
-                bitwise &= check_bf16(errors, "fused_smooth", got, want, main, f"{tag} level {lshape} {fname}")
-            if main:
-                # the V-cycle's two launches on this level, bf16 beside f32
-                b32, x032, ec32 = b.float(), x0.float(), ec.float()
-                for kind, kw16, kw32 in (("restrict", forms["restrict"], dict(forms["restrict"], tr=l32.tr)),
-                                         ("ec", forms["ec"], dict(forms["ec"], x0=x032, ec=ec32, tr=l32.tr))):
-                    t16 = time_ms(lambda: cuda_vcycle.fused_smooth_cuda(level.op, b, **kw16), 50, kernel=True)
-                    t32 = time_ms(lambda: cuda_vcycle.fused_smooth_cuda(l32.op, b32, **kw32), 50, kernel=True)
-                    rows.append((f"{kind} {lshape[0]}x{lshape[1]}", t16, t32, *smooth_bound(level.op, kw16)[:1],
-                                 smooth_bound(l32.op, kw32)[0]))
-                    if lvl == 0 and kind == "restrict":
-                        times["fused_smooth_bf16"] = (
-                            t16, time_ms(lambda: cuda_vcycle.fused_smooth_twin(level.op, b, **kw16), 10),
-                            *smooth_bound(level.op, kw16))
-        log(f"  {tag}: {len(levels)} levels {[tuple(lv.op.aC.shape) for lv in levels]}, the coarsest "
-            f"{'inverted densely' if levels[-1].coarse_inv is not None else 'swept'}: fused_smooth's four forms "
-            f"agree at every smoothed level, bitwise {bitwise}")
-        if rows:
-            log("  fused_smooth, one bf16 V(2,2) cycle's launches (device ms bf16 / f32 on the uncast level; "
-                "bound bf16 / f32): " + "; ".join(f"{n} {a:.4f} / {c:.4f} ({a / c:.3f}x; {bb:.4f} / {bf32:.4f})"
-                                                  for n, a, c, bb, bf32 in rows))
-            log(f"  fused_smooth, the cycle's {len(rows)} launches summed: bf16 {sum(r[1] for r in rows):.4f} ms, "
-                f"f32 {sum(r[2] for r in rows):.4f} ms ({sum(r[1] for r in rows) / sum(r[2] for r in rows):.3f}x)")
-        # rb_sweep on the bf16 "mg" hierarchy
-        op32 = random_operator(*shape, seed=13, dtype=torch.float32, device=device)
-        mg_levels = mg.build_hierarchy(boxmg.cast_struct(op32, bf))
-        bitwise_sw, worst = True, 0.0
-        for lvl, op in enumerate(mg_levels):
-            lshape = tuple(op.aC.shape)
-            b = random_field(lshape, 900 + lvl, torch.float32, device).to(bf)
-            for x0 in (torch.zeros_like(b), random_field(lshape, 950 + lvl, torch.float32, device).to(bf)):
-                for reverse in (False, True):
-                    got = cuda_smoother.rb_sweep_cuda(op, x0, b, reverse)
-                    want = cuda_smoother.rb_sweep_twin(op, x0, b, reverse)
-                    worst = max(worst, float((got.float() - want.float()).abs().max()))
-                    bitwise_sw &= check_bf16(errors, "rb_sweep", got, want, main,
-                                             f"{tag} mg level {lshape} reverse={reverse}",
-                                             scale=float(want.float().abs().max()))
-        log(f"  {tag}: rb_sweep on the {len(mg_levels)} bf16 'mg' levels (both orders, zero and random x): "
-            f"max|kernel - twin| {worst:.3e}, bitwise {bitwise_sw}")
-        if main:
-            op16, b16 = mg_levels[0], random_field(shape, 990, torch.float32, device).to(bf)
-            x16 = random_field(shape, 991, torch.float32, device).to(bf)
-            x32, b32 = x16.float(), b16.float()
-            n = b16.numel()
-            t16 = time_ms(lambda: cuda_smoother.rb_sweep_cuda(op16, x16, b16), 50, kernel=True)
-            t32 = time_ms(lambda: cuda_smoother.rb_sweep_cuda(op32, x32, b32), 50, kernel=True)
-            times["rb_sweep_bf16"] = (t16, time_ms(lambda: cuda_smoother.rb_sweep_twin(op16, x16, b16), 20),
-                                      *bound(8 * 2 * n, 13 * n, bf))
-            log(f"  rb_sweep 1026^2: bf16 {t16:.4f} ms, f32 {t32:.4f} ms ({t16 / t32:.3f}x); bound bf16 "
-                f"{times['rb_sweep_bf16'][2]:.4f}, f32 {bound(8 * 4 * n, 13 * n, torch.float32)[0]:.4f} ms")
-    # the limits of fused_smooth's tiling, in bf16
     fine32 = random_operator(389, 277, seed=19, dtype=torch.float32, device=device)
     small32 = random_operator(23, 19, seed=29, dtype=torch.float32, device=device)
     limit_ops = (("389x277 5-point", fine32), ("195x139 9-point", cuda_rap.fused_rap_twin(fine32)[1]),
                  ("37x29 5-point", random_operator(37, 29, seed=23, dtype=torch.float32, device=device)),
                  ("12x10 9-point", cuda_rap.fused_rap_twin(small32)[1]))
+    out = []
     for name, op32 in limit_ops:
         tr32 = cuda_rap.fused_rap_twin(op32)[0]
         op, tr = boxmg.cast_struct(op32, bf), boxmg.cast_struct(tr32, bf)
@@ -3209,13 +3176,197 @@ def bf16_phase(device, errors: Errors) -> dict:
             "8 half-steps ec": dict(x0=x0, colors=(False, True) * 4, tr=tr, ec=ec),
             "sweep pair": dict(x0=x0, colors=(True, False, False, True)),
         })
-        bitwise = True
-        for what, kw in cases.items():
+        out.extend((name, what, op, b, kw) for what, kw in cases.items())
+    return out
+
+
+def bf16_phase(device, errors: Errors) -> dict:
+    """Phase 3e: the bf16 forms of kernels #1 and #9 against their twins,
+    bitwise (torch.equal, required; the largest difference is also held
+    to one bf16 ulp and reported). fused_smooth (bf16 storage, f32
+    arithmetic) in its four forms at every level above the coarsest of the
+    bf16 BoxMG hierarchies of the 1026^2 and 1023 x 771 boxes and at the
+    limits of its tiling; rb_sweep (every operation in bf16) at every level
+    of the bf16 "mg" hierarchies of both boxes, both orders, from a zero
+    and a random x. Times: each level's two V-cycle launches in bf16 beside
+    the f32 kernel on the uncast level, and rb_sweep bf16 beside f32 at
+    1026^2, each with its bound (the bf16 bytes, f32 operations). Returns
+    name -> (kernel ms, twin ms, bound ms, bound by) of the bf16 forms at
+    the main path's shapes."""
+    from fluidsolver_tpu_torch.poisson import cuda_smoother, cuda_vcycle
+
+    bf = torch.bfloat16
+    times = {}
+    for shape, main in (((1026, 1026), True), ((1023, 771), False)):
+        tag = f"bf16 {shape[0]}x{shape[1]}"
+        levels32, levels = bf16_levels(shape, device)
+        rows, n_cases = [], 0
+        for lvl, lshape, fname, op, b, kw in bf16_smooth_cases(levels, device):
             got = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
             want = cuda_vcycle.fused_smooth_twin(op, b, **kw)
-            bitwise &= check_bf16(errors, "fused_smooth", got, want, False, f"bf16 {name} {what}")
-        log(f"  bf16 {name}: fused_smooth agrees on {len(cases)} limit cases, bitwise {bitwise}")
+            require(check_bf16(errors, "fused_smooth", got, want, main, f"{tag} level {lshape} {fname}"),
+                    f"fused_smooth {tag} level {lshape} {fname}: not bitwise its twin")
+            n_cases += 1
+            if main and fname == "ec":
+                # the V-cycle's two launches on this level, bf16 beside f32
+                l32 = levels32[lvl]
+                forms = smooth_forms(levels[lvl].tr, kw["x0"], kw["ec"])
+                b32, x032, ec32 = b.float(), kw["x0"].float(), kw["ec"].float()
+                for kind, kw16, kw32 in (("restrict", forms["restrict"], dict(forms["restrict"], tr=l32.tr)),
+                                         ("ec", forms["ec"], dict(forms["ec"], x0=x032, ec=ec32, tr=l32.tr))):
+                    t16 = time_ms(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw16), 50, kernel=True)
+                    t32 = time_ms(lambda: cuda_vcycle.fused_smooth_cuda(l32.op, b32, **kw32), 50, kernel=True)
+                    rows.append((f"{kind} {lshape[0]}x{lshape[1]}", t16, t32, *smooth_bound(op, kw16)[:1],
+                                 smooth_bound(l32.op, kw32)[0]))
+                    if lvl == 0 and kind == "restrict":
+                        times["fused_smooth_bf16"] = (
+                            t16, time_ms(lambda: cuda_vcycle.fused_smooth_twin(op, b, **kw16), 10),
+                            *smooth_bound(op, kw16))
+        log(f"  {tag}: {len(levels)} levels {[tuple(lv.op.aC.shape) for lv in levels]}, the coarsest "
+            f"{'inverted densely' if levels[-1].coarse_inv is not None else 'swept'}: fused_smooth's four forms "
+            f"bitwise equal to the twin's at every smoothed level ({n_cases} cases)")
+        if rows:
+            log("  fused_smooth, one bf16 V(2,2) cycle's launches (device ms bf16 / f32 on the uncast level; "
+                "bound bf16 / f32): " + "; ".join(f"{n} {a:.4f} / {c:.4f} ({a / c:.3f}x; {bb:.4f} / {bf32:.4f})"
+                                                  for n, a, c, bb, bf32 in rows))
+            log(f"  fused_smooth, the cycle's {len(rows)} launches summed: bf16 {sum(r[1] for r in rows):.4f} ms, "
+                f"f32 {sum(r[2] for r in rows):.4f} ms ({sum(r[1] for r in rows) / sum(r[2] for r in rows):.3f}x)")
+        # rb_sweep on the bf16 "mg" hierarchy
+        mg_levels = bf16_mg_levels(shape, device)
+        worst = 0.0
+        for lshape, op, x0, b, reverse in bf16_sweep_cases(mg_levels, device):
+            got = cuda_smoother.rb_sweep_cuda(op, x0, b, reverse)
+            want = cuda_smoother.rb_sweep_twin(op, x0, b, reverse)
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+            what = f"{tag} mg level {lshape} reverse={reverse}"
+            require(check_bf16(errors, "rb_sweep", got, want, main, what, scale=float(want.float().abs().max())),
+                    f"rb_sweep {what}: not bitwise its twin")
+        log(f"  {tag}: rb_sweep on the {len(mg_levels)} bf16 'mg' levels (both orders, zero and random x): "
+            f"max|kernel - twin| {worst:.3e}, bitwise equal to the twin's")
+        if main:
+            op16, b16 = mg_levels[0], random_field(shape, 990, torch.float32, device).to(bf)
+            op32 = random_operator(*shape, seed=13, dtype=torch.float32, device=device)
+            x16 = random_field(shape, 991, torch.float32, device).to(bf)
+            x32, b32 = x16.float(), b16.float()
+            n = b16.numel()
+            t16 = time_ms(lambda: cuda_smoother.rb_sweep_cuda(op16, x16, b16), 50, kernel=True)
+            t32 = time_ms(lambda: cuda_smoother.rb_sweep_cuda(op32, x32, b32), 50, kernel=True)
+            times["rb_sweep_bf16"] = (t16, time_ms(lambda: cuda_smoother.rb_sweep_twin(op16, x16, b16), 20),
+                                      *bound(8 * 2 * n, 13 * n, bf))
+            log(f"  rb_sweep 1026^2: bf16 {t16:.4f} ms, f32 {t32:.4f} ms ({t16 / t32:.3f}x); bound bf16 "
+                f"{times['rb_sweep_bf16'][2]:.4f}, f32 {bound(8 * 4 * n, 13 * n, torch.float32)[0]:.4f} ms")
+    # the limits of fused_smooth's tiling, in bf16
+    limits = bf16_limit_cases(device)
+    for name, what, op, b, kw in limits:
+        got = cuda_vcycle.fused_smooth_cuda(op, b, **kw)
+        want = cuda_vcycle.fused_smooth_twin(op, b, **kw)
+        require(check_bf16(errors, "fused_smooth", got, want, False, f"bf16 {name} {what}"),
+                f"fused_smooth bf16 {name} {what}: not bitwise its twin")
+    log(f"  bf16: fused_smooth bitwise equal to the twin's on all {len(limits)} limit cases")
     return times
+
+
+def checkout_lib(path: str, name: str) -> ctypes.CDLL:
+    """The kernel library of another checkout ``path`` (e.g. the parent
+    commit unpacked by git archive, or a variant of this one's csrc),
+    built from its csrc into _build/<name> and bound like this commit's."""
+    from fluidsolver_tpu_torch.poisson import _kernels
+
+    return load_library(_kernels.build(csrc=Path(path) / "fluidsolver_tpu_torch" / "csrc",
+                                       build_dir=_kernels.BUILD_DIR / name))
+
+
+def in_turns(libs, fn) -> list:
+    """``fn()`` timed through each library of ``libs`` ([(name, lib)], None
+    = this commit's) in turns: forward, then backward (parent, this, this,
+    parent with two); returns the mean ms of each."""
+    order = list(range(len(libs))) + list(reversed(range(len(libs))))
+    ms = [[] for _ in libs]
+    for k in order:
+        with kernel_library(libs[k][1]):
+            ms[k].append(fn())
+    return [sum(m) / len(m) for m in ms]
+
+
+def bf16_parent_phase(device, parent, variants=(), probes=()) -> None:
+    """With --parent: the parent's bf16 kernels torch.equal to this
+    commit's on every input of phase 3e (rb_sweep at every level of both
+    bf16 "mg" hierarchies, both orders, zero and random x; fused_smooth's
+    four forms at every smoothed level of both bf16 BoxMG hierarchies and
+    its 40 limit cases), and timed in turns (parent, this, this, parent):
+    rb_sweep at every level of the 1026^2 "mg" hierarchy and one V-cycle's
+    52 launches (4 a level, 16 on the coarsest), fused_smooth's 14 launches
+    of one BoxMG cycle, each with its bound. ``variants``: further
+    checkouts (tuning runs), held and timed the same way; ``probes``:
+    checkouts timed only (cut-short kernels, whose outputs are not held)."""
+    from fluidsolver_tpu_torch.poisson import cuda_smoother, cuda_vcycle
+
+    others = [("parent", parent_lib(parent))] + [(f"variant {i}", checkout_lib(d, f"variant{i}"))
+                                                 for i, d in enumerate(variants)]
+    libs = [others[0], ("this", None)] + others[1:] + [(f"probe {i}", checkout_lib(d, f"probe{i}"))
+                                                       for i, d in enumerate(probes)]
+
+    def outputs(lib, fn):
+        with kernel_library(lib):
+            out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    def same(fn, what):
+        new = outputs(None, fn)
+        for name, lib in others:
+            require(all(torch.equal(o, w) for o, w in zip(outputs(lib, fn), new)),
+                    f"the {name}'s bf16 {what} and this commit's differ")
+
+    for shape in ((1026, 1026), (1023, 771)):
+        cases = bf16_sweep_cases(bf16_mg_levels(shape, device), device)
+        for lshape, op, x0, b, reverse in cases:
+            same(lambda: cuda_smoother.rb_sweep_cuda(op, x0, b, reverse),
+                 f"rb_sweep at {shape} level {lshape} reverse={reverse}")
+        log(f"  bf16 {shape[0]}x{shape[1]}: the parent's rb_sweep torch.equal to this commit's on all "
+            f"{len(cases)} cases (every 'mg' level, both orders, zero and random x)")
+        cases = bf16_smooth_cases(bf16_levels(shape, device)[1], device)
+        for _, lshape, fname, op, b, kw in cases:
+            same(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), f"fused_smooth at {shape} {lshape} {fname}")
+        log(f"  bf16 {shape[0]}x{shape[1]}: the parent's fused_smooth torch.equal to this commit's on all "
+            f"{len(cases)} cases (four forms at every smoothed level)")
+    limits = bf16_limit_cases(device)
+    for name, what, op, b, kw in limits:
+        same(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), f"fused_smooth {name} {what}")
+    log(f"  bf16: the parent's fused_smooth torch.equal to this commit's on all {len(limits)} limit cases")
+
+    head = ", ".join(name for name, _ in libs)
+    # rb_sweep: every level of the 1026^2 "mg" hierarchy
+    rows = []
+    for lvl, op in enumerate(bf16_mg_levels((1026, 1026), device)):
+        lshape = tuple(op.aC.shape)
+        b = random_field(lshape, 990 + lvl, torch.float32, device).to(torch.bfloat16)
+        x = random_field(lshape, 1990 + lvl, torch.float32, device).to(torch.bfloat16)
+        ms = in_turns(libs, lambda: time_ms(lambda: cuda_smoother.rb_sweep_cuda(op, x, b), 50, kernel=True))
+        n = b.numel()
+        rows.append((lshape, ms, bound(8 * 2 * n, 13 * n, torch.bfloat16)[0]))
+        log(f"  rb_sweep bf16 {lshape[0]}x{lshape[1]}, device ms in turns ({head}): "
+            + ", ".join(f"{t:.4f}" for t in ms) + f"; this / parent = {ms[1] / ms[0]:.4f}; bound {rows[-1][2]:.4f}")
+    weights = [4] * (len(rows) - 1) + [16]
+    cyc = [sum(w * r[1][k] for w, r in zip(weights, rows)) for k in range(len(libs))]
+    log(f"  rb_sweep bf16, one 'mg' V-cycle's {sum(weights)} launches (4 a level, 16 on the coarsest) in turns "
+        f"({head}): " + ", ".join(f"{t:.4f}" for t in cyc) + f" ms; this / parent = {cyc[1] / cyc[0]:.4f}; "
+        f"bound {sum(w * r[2] for w, r in zip(weights, rows)):.4f} ms")
+    # fused_smooth: one BoxMG bf16 cycle's 14 launches
+    levels = bf16_levels((1026, 1026), device)[1]
+    total = [0.0] * len(libs)
+    n_launch, bsum = 0, 0.0
+    for _, lshape, fname, op, b, kw in bf16_smooth_cases(levels, device):
+        if fname not in ("restrict", "ec"):
+            continue
+        ms = in_turns(libs, lambda: time_ms(lambda: cuda_vcycle.fused_smooth_cuda(op, b, **kw), 50, kernel=True))
+        bt = smooth_bound(op, kw)[0]
+        total = [a + t for a, t in zip(total, ms)]
+        n_launch, bsum = n_launch + 1, bsum + bt
+        log(f"  fused_smooth bf16 {fname} {lshape[0]}x{lshape[1]}, device ms in turns ({head}): "
+            + ", ".join(f"{t:.4f}" for t in ms) + f"; this / parent = {ms[1] / ms[0]:.4f}; bound {bt:.4f}")
+    log(f"  fused_smooth bf16, one BoxMG cycle's {n_launch} launches summed in turns ({head}): "
+        + ", ".join(f"{t:.4f}" for t in total) + f" ms; this / parent = {total[1] / total[0]:.4f}; "
+        f"bound {bsum:.4f} ms")
 
 
 def sweep_parent_phase(device, parent) -> None:
@@ -3346,6 +3497,12 @@ def log_solve_exits(solves: list, cfg) -> tuple:
     return capped, stalled
 
 
+# phase 12's Σp_iter and bf16 launches a step as recorded before the bf16
+# kernels' redesign (NVIDIA H100 80GB HBM3, 700 W; PERF.md): BoxMG 20
+# steps, "mg" 10. Bitwise kernels leave both unchanged.
+RECORDED_BF16 = {"boxmg": (1606, 1194.2), "mg": (1884, 10056.8)}
+
+
 def bf16_bench_phase(device, g, cfg, vf0) -> dict:
     """Phase 12: the bench configuration with pressure_precond_dtype=
     "bfloat16", on BoxMG for 20 steps and on "mg" for 10: phase 6's report,
@@ -3411,8 +3568,15 @@ def bf16_bench_phase(device, g, cfg, vf0) -> dict:
         log(f"  expected launches: {expected}; peak device memory {peak:.3f} GiB; Σp_iter {sum(iters)}")
         require(all(launches.get(k, 0) == v for k, v in expected.items()),
                 f"{solver} bf16: the launch counts differ from the expected ones")
-        out[solver] = launches.get("fused_smooth_bf16" if solver == "boxmg" else "rb_sweep_bf16", 0)
-        profile_bench(step, state, 3 if solver == "boxmg" else 2, kernels)
+        name = "fused_smooth" if solver == "boxmg" else "rb_sweep"
+        out[solver] = launches.get(name + "_bf16", 0)
+        log(f"  {solver} bf16: Σp_iter {sum(iters)} in {n_steps} steps (recorded: {RECORDED_BF16[solver][0]}), "
+            f"{out[solver] / n_steps:.1f} {name} bf16 launches a step (recorded: {RECORDED_BF16[solver][1]})")
+        n_prof = 3 if solver == "boxmg" else 2
+        by_name, busy = profile_bench(step, state, n_prof, kernels)
+        t_k = by_name.get(name, (0.0, 0))[0]
+        log(f"  {solver} bf16: {name} bf16 {t_k / 1e3 / n_prof:.4f} device ms a step, {t_k / max(busy, 1e-9):.3f} "
+            f"of the device's busy time")
     return out
 
 
@@ -3963,8 +4127,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one H100.")
     ap.add_argument("--parent", default=None,
                     help="a checkout of another commit: also hold its fused_rap, tail_setup, fused_smooth, "
-                         "elvira, curvature, overlap, step_ab, step_c, step_init and rb_sweep bitwise to this "
-                         "one's and time them and its tail_cycle against this one's (phases 3-3d)")
+                         "elvira, curvature, overlap, step_ab, step_c, step_init and rb_sweep (and the bf16 forms "
+                         "of fused_smooth and rb_sweep) bitwise to this one's and time them and its tail_cycle "
+                         "against this one's (phases 3-3e)")
     parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4031,6 +4196,8 @@ def main(argv=None) -> int:
         phase = "3e bf16 kernels vs twins"
         log("phase 3e: the bf16 forms of fused_smooth and rb_sweep against their twins on the card")
         times.update(bf16_phase(device, errors))
+        if parent is not None:
+            bf16_parent_phase(device, parent)
         for k, (tk, tt, tb, by) in times.items():
             log(f"  {k}: kernel {tk:.4f} ms, twin {tt:.4f} ms, bound {tb:.4f} ms ({by}) "
                 "(f32, main-path shape)")
@@ -4124,7 +4291,7 @@ def main(argv=None) -> int:
         t = times[k + "_bf16"]
         next(e for e in kernels if e["name"] == k)["bf16"] = {
             "launches": bf16_launches[run], "max_abs_err": errors.max_abs[k + "_bf16"], "ms": t[0],
-            "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+            "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
     # kernel #1 on the mesh step's slabs (parallel/cuda_shard.py): its
     # launches on phase 14e's run, its time on one slab of the 1026^2
     # pre-smoothing phase (phase 14a)

@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu", "cg.cu", "momentum.cu", "elvira.cu",
            "curvature.cu", "overlap.cu", "rb_sweep.cu")
-HEADERS = ("bf16.cuh", "boxmg_device.cuh", "vof_device.cuh")
+HEADERS = ("boxmg_device.cuh", "vof_device.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -200,6 +200,17 @@ def check(tensors, device, dtype) -> None:
             raise ValueError(
                 f"kernel operand must be contiguous {dtype} on {device}; got "
                 f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
+
+
+def check_words(tensors, what: str) -> None:
+    """Every bf16 tensor starts on 4 bytes: the bf16 kernels load and store
+    pairs of neighbouring values as one 4-byte word (their level rows are
+    not padded, so a row of odd width starts on 2 bytes every other row,
+    which the kernels take; a plane that starts on 2 bytes they do not)."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 4:
+            raise ValueError(f"{what}: a bf16 operand starts on 2 bytes, not 4 (a view at an odd offset); "
+                             "pass a contiguous copy")
 
 
 def stream(device) -> ctypes.c_void_p:

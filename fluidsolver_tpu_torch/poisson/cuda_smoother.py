@@ -13,7 +13,9 @@ On bf16 operands (the "mg" hierarchy of ``pressure_precond_dtype=
 "bfloat16"``) the sweep computes in bf16, as the TPU kernel does: the twin
 is ``color_update`` chained on bf16 tensors, each PyTorch operation
 rounding its result, and the kernel rounds after every operation in the
-same order (``csrc/bf16.cuh`` ``bf16r``).
+same order (bf16x2 instructions and a float division in ``csrc/rb_sweep.cu``).
+It takes the planes, b and x as 4-byte words: a bf16 operand that starts on
+2 bytes raises (``_kernels.check_words``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ def rb_sweep_cuda(op: StencilOp, x, b, reverse: bool = False):
     if any(t.shape != b.shape for t in planes + [x]) or b.dim() != 2:
         raise ValueError("operator planes, x and b must share one 2-D shape")
     out = torch.empty_like(x)
+    _kernels.check_words(planes + [b, x, out], "rb_sweep")
     N, M = b.shape
     rc = _kernels.lib().fs_rb_sweep(
         _kernels.dtype_code(b.dtype), _kernels.ptrs(planes), b.data_ptr(), x.data_ptr(),

@@ -82,6 +82,7 @@ def fused_smooth_cuda(op: Operator, b, x0=None, colors=(), residual=False,
     x = torch.empty_like(b)
     mode = _RESTRICT if restrict else _RESIDUAL if residual else _PLAIN
     r = (b.new_empty((Nc, Mc)) if restrict else torch.empty_like(b)) if mode else None
+    _kernels.check_words(planes + [b, x] + wplanes + optional + ([r] if r is not None else []), "fused_smooth")
     mask = sum(1 << s for s, red in enumerate(colors) if red)
     op_ptrs = _kernels.ptrs(planes)
     tr_ptrs = _kernels.ptrs(wplanes) if wplanes else None

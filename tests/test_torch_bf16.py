@@ -217,17 +217,42 @@ def test_cast_hierarchy_matches_jax(shape):
         assert np.abs(diff).max() <= inv_tol * np.abs(want_p).max(), np.abs(diff).max()
 
 
+# the JAX hierarchy's coarsest operator, jitted once for both pins (one
+# compile for the drop's shapes instead of eager JAX's per-operation ones)
+_jax_coarsest = jax.jit(lambda op: jbox.build_hierarchy(op)[-1].op)
+
+
 @pytest.mark.parametrize("pin", [None, "left"])
 def test_dense_coarse_inverse_matches_jax(pin):
     """The coarsest (9-point) level of the 34^2 drop, singular (deflated)
     and pinned (inverted as it is), and a 5-point operator, in f64."""
     _, op = drop_system(32, pin=pin)
-    coarsest = jbox.build_hierarchy(op)[-1].op
+    coarsest = _jax_coarsest(op)
     for jop in (coarsest, jlin.StencilOp(*(getattr(op, n)[:12, :10] for n in ("aC", "aL", "aR", "aB", "aT")))):
         want = np.asarray(jbox._dense_coarse_inverse(jop))
         got = boxmg._dense_coarse_inverse(to_port(jop))
         assert got.dtype == torch.float64
         np.testing.assert_allclose(got.numpy(), want, rtol=0.0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("kernel", ["rb_sweep", "fused_smooth"])
+def test_bf16_operands_must_start_on_words(kernel):
+    """The bf16 kernels load and store pairs of values as 4-byte words, so
+    their wrappers raise, before any launch, on a bf16 operand that starts
+    on 2 bytes (a contiguous view at an odd offset); the check itself
+    passes operands on 4 bytes and ignores other dtypes."""
+    buf = torch.zeros(2 * 12 + 2, dtype=BF)
+    odd, even = buf[1:13].view(3, 4), buf[2:14].view(3, 4)
+    _kernels.check_words([even, torch.zeros(3, 4), torch.zeros(3, 4, dtype=torch.float64)], "test")
+    with pytest.raises(ValueError, match="starts on 2 bytes"):
+        _kernels.check_words([even, odd], "test")
+    op = StencilOp(*(torch.ones(3, 4, dtype=BF) for _ in range(5)))
+    b = torch.ones(3, 4, dtype=BF)
+    with pytest.raises(ValueError, match=f"{kernel}: a bf16 operand starts on 2 bytes"):
+        if kernel == "rb_sweep":
+            cuda_smoother.rb_sweep_cuda(op, odd, b)
+        else:
+            cuda_vcycle.fused_smooth_cuda(op, b, x0=odd, colors=(True, False))
 
 
 def test_precond_dtype_names():

@@ -26,19 +26,27 @@ torch.set_num_threads(1)
 
 
 # ---- PCG with a bf16 preconditioner -----------------------------------------------
+@pytest.fixture(scope="module")
+def drop64():
+    """The 64^2 drop's operator, a zero-mean solution and its right-hand
+    side (JAX and port), shared by both preconditioners' cases."""
+    g, jop = drop_system(64)
+    rng = np.random.default_rng(7)
+    x_true = rng.normal(size=g.shape_center)
+    x_true -= x_true.mean()
+    jb = jlin.apply_op(jop, jnp.asarray(x_true))
+    return jop, jb, x_true
+
+
 @pytest.mark.parametrize("precond", ["boxmg", "mg"])
-def test_pcg_bf16_preconditioner_converges(precond):
+def test_pcg_bf16_preconditioner_converges(drop64, precond):
     """``tests/test_poisson.py``'s protocol on the 64^2 drop (f64 CG, tol
     1e-8): converges, the solution within 1e-4, at most twice the f32
     preconditioner's iterations, and the iterations beside the JAX
     package's (its XLA sweeps round every bf16 operation where the port's
     fused_smooth computes in f32 between its outputs; measured: equal on
     "mg", 9 against 8 on "boxmg")."""
-    g, jop = drop_system(64)
-    rng = np.random.default_rng(7)
-    x_true = rng.normal(size=g.shape_center)
-    x_true -= x_true.mean()
-    jb = jlin.apply_op(jop, jnp.asarray(x_true))
+    jop, jb, x_true = drop64
     op, b = to_port(jop), T(jb)
     _, _, it32 = cg.solve_pcg(op, b, tol=1e-8, max_iter=200, singular=True, precond=precond)
     x16, rel, it16 = cg.solve_pcg(op, b, tol=1e-8, max_iter=200, singular=True, precond=precond,
