@@ -138,20 +138,36 @@ result line):
      1 (sealed: 2) and one host read an iteration; the MLS weights, shape
      functions, interpolation and the 5-point and nearest-neighbour
      samples of a 32^2 field to 1e-12 (nearest neighbour exact);
+  4h. f64 on the card against the CPU: lid_driven(64)'s and the golden
+     drop's BoxMG hierarchies end in the dense coarsest inverse with no
+     tail (the f32 1026^2 operator's still starts its tail at 129^2), and
+     take the CPU's PCG iterations solve by solve (each logged); kernel #4
+     (fused_rap) against galerkin_boxmg (comb probing) on the same operator
+     and transfer at every fused_rap level of the 1026^2 and 1023 x 771
+     boxes, f64 within 1e-12 of each plane's largest value, f32 within the
+     rounding bound of the two summation orders (galerkin_f32_bound);
+     conserved_quantities of the golden drop at step 0 and 15 within 1e-12
+     of the sum of its absolute terms (mass drift logged); the drop under
+     FS_NAN_POISON=1 torch.equal over the interior to the unpoisoned run on
+     the card and the CPU, every CPU dmom/drho ring NaN; the core/fields.py
+     helpers and l1_norm on the bench's initial state (max, min exact,
+     sums within 1e-12);
   5. lid_driven(n=1024), f32, 20 steps: ms/step, PCG iterations, max |div|,
      host syncs per step, launch counts (the V-cycle and the PCG kernels),
      and the kernels seen by torch.profiler over make_step plus one step;
   6. the two-phase bench configuration (a drop in an inflow channel, 1024^2,
      1000:1, 5 subiterations, refresh "step", PCG + BoxMG, f32), 20 steps:
-     ms/step, p_iter, host syncs, VOF volume error, vf bounds and volume
-     drift, max |div|, the exact launch counts of its eleven kernels, and a
+     ms/step, p_iter (Σp_iter must be the recorded 598), host syncs, VOF
+     volume error, vf bounds and volume drift, max |div|, the exact launch
+     counts of its eleven kernels, and a
      profiler split of 3 steps (kernels, rest of the VOF stage, pressure
      solve, other work, idle share), in which the profiler must see one
      device kernel per step_ab, step_c, step_init, tail_setup, fused_rap,
      elvira, curvature and overlap call, and their in-path device time per
      call;
   7. the same configuration on PCG + "mg" (the JAX package's default
-     preconditioner), 10 steps: the phase 6 report, the solves that stopped
+     preconditioner), 10 steps: the phase 6 report (Σp_iter must be the
+     recorded 1735), the solves that stopped
      at the iteration cap or above their tolerance, the exact launch counts
      (rb_sweep: (PCG iterations + solves) x sweeps per V-cycle; kernels 5-8
      and 10-12; no BoxMG kernel), and a profiler split of 2 steps;
@@ -2294,13 +2310,11 @@ def full_size_phase(device) -> None:
     require(finite, "non-finite U, V or p")
 
     # kernels seen by the profiler over make_step + one step
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         step = case.make_step(dtype, device)
         state = step(state, case.t_end)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in device_events(prof)]
     pressure_kernels = ("fused_rap", "fused_smooth", "tail_setup", "tail_cycle")
     counts = {k: sum(any(t in n for t in TRACE_NAMES[k]) for n in names) for k in pressure_kernels}
     log(f"  profiler: {len(names)} device events; our kernels: {counts}; "
@@ -2321,26 +2335,48 @@ def full_size_phase(device) -> None:
         log(f"    {t / 1e3:9.4f}  {c:5d}  {n}")
 
 
+@contextlib.contextmanager
+def device_trace():
+    """torch.profiler (CPU and CUDA) over the block, after one warm-up cycle
+    (a device sleep, its events discarded) that brings the device trace up:
+    without it a trace has missed a kernel at the start of its window."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+        torch.cuda.synchronize()
+        prof.step()
+
+
+def device_events(prof) -> list:
+    """The device-side events of a ``device_trace``, without the span its
+    schedule annotates over the window (``ProfilerStep#n``)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+
+
 def profile_steps(run_step, n: int):
     """Profile ``n`` calls of ``run_step``. Returns (device time by kernel
     name -> (us, launches), busy us, wall us, range name -> device us). A
     kernel counts toward a ``twophase.*`` profiler range, and toward the
     PCG loop's guard range nested in the pressure range, when it starts
     inside that range's span on the device timeline."""
-    from torch.profiler import ProfilerActivity, profile
-
     from fluidsolver_tpu_torch.poisson import cg
 
     def is_range(name):
         return name.startswith("twophase.") or name == cg.GUARD_RANGE
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             run_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = device_events(prof)
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in device if is_range(e.name)]
     by_name, ranges = {}, {}
     for e in device:
@@ -2468,6 +2504,12 @@ def profile_bench(step, state, n: int, kernels) -> tuple:
     return by_name, busy
 
 
+# Σp_iter of the f32 bench step as recorded since PR 3 (PERF.md; NVIDIA H100
+# 80GB HBM3, 700 W): 20 steps on BoxMG (phase 6), 10 on "mg" (phase 7). The
+# dense coarsest inverse of the other hierarchies leaves the f32 path as it was.
+RECORDED_P_ITER = {"boxmg": 598, "mg": 1735}
+
+
 def bench_phase(device, g, cfg, vf0) -> dict:
     """20 steps of the bench configuration (BoxMG); returns the launch counts."""
     n_steps = 20
@@ -2484,7 +2526,9 @@ def bench_phase(device, g, cfg, vf0) -> dict:
                 # init-form step_c per solve, one fused_momentum per subiteration
                 "step_ab": sum(iters), "step_c": sum(iters) + solves, "step_init": solves,
                 "fused_momentum": solves, "rb_sweep": 0}
-    log(f"  expected launches: {expected}")
+    log(f"  expected launches: {expected}; Σp_iter {sum(iters)} (recorded {RECORDED_P_ITER['boxmg']})")
+    require(sum(iters) == RECORDED_P_ITER["boxmg"], f"Σp_iter {sum(iters)} differs from the recorded "
+            f"{RECORDED_P_ITER['boxmg']}: the f32 BoxMG path changed")
     require(all(launches.get(k, 0) == v for k, v in expected.items()),
             "the launch counts differ from one VOF kernel each, one hierarchy per step, one V-cycle, "
             "step_ab and step_c per PCG iteration, and one step_init, step_c, V-cycle and "
@@ -2519,7 +2563,9 @@ def mg_bench_phase(device, g, cfg, vf0) -> dict:
     expected = {"rb_sweep": cycles * sweeps, "elvira": n_steps, "curvature": n_steps, "overlap": n_steps,
                 "step_ab": sum(iters), "step_c": cycles, "step_init": n_solves, "fused_momentum": n_solves,
                 **{k: 0 for k in BOXMG}}
-    log(f"  expected launches: {expected}")
+    log(f"  expected launches: {expected}; Σp_iter {sum(iters)} (recorded {RECORDED_P_ITER['mg']})")
+    require(sum(iters) == RECORDED_P_ITER["mg"], f"Σp_iter {sum(iters)} differs from the recorded "
+            f"{RECORDED_P_ITER['mg']}: the f32 \"mg\" path changed")
     require(all(launches.get(k, 0) == v for k, v in expected.items()),
             f"the launch counts differ from {sweeps} rb_sweep launches per V-cycle (one per PCG "
             "iteration and one per solve), the PCG and momentum kernels per iteration and solve, "
@@ -3738,6 +3784,239 @@ def extrapolate_mls_phase(device) -> None:
             "mls_interpolate does not reproduce a linear field on the card")
 
 
+# ---- phase 4h ------------------------------------------------------------------
+# the longest chain of roundings from the inputs to one coarse coefficient in
+# galerkin_boxmg: three products (P, A, R) and the sums of prolong_box (up to
+# 4 terms), apply_op9 (9) and restrict_box (9)
+PROBE_ROUNDINGS = 3 + 3 + 8 + 8
+
+
+def galerkin_f32_bound(op, tr, shape) -> list:
+    """Entrywise bounds on |fused_rap - galerkin_boxmg| in f32. Both sides
+    compute each coarse coefficient as a sum of the same triple products
+    w1 a w2 (the closed form term by term, the probe through P, A and R), so
+    each is off the exact value by at most gamma_n S, with S = sum |w1 a w2|
+    (galerkin_closed of |A| and |P|, in f64) and n its longest chain of
+    roundings (gamma_n = n u / (1 - n u), u = 2^-24): the closed form's two
+    products and serial sum of T terms (n = T + 2), the probe's
+    PROBE_ROUNDINGS. The bound is (gamma_closed + gamma_probe) S."""
+    from fluidsolver_tpu_torch.poisson import boxmg
+
+    u = 2.0 ** -24
+    terms = boxmg._enumerate_rap_terms(len(boxmg.coefs(op)))
+    gamma = lambda n: n * u / (1 - n * u)  # noqa: E731
+    absolute = lambda s: dataclasses.replace(  # noqa: E731
+        s, **{f.name: getattr(s, f.name).double().abs() for f in dataclasses.fields(s)})
+    S = boxmg.galerkin_closed(absolute(op), absolute(tr), shape)
+    return [(gamma(len(terms[boxmg._A_OFFSETS[n]]) + 2) + gamma(PROBE_ROUNDINGS)) * getattr(S, n)
+            for n in boxmg.COEF_NAMES]
+
+
+def galerkin_phase(device) -> None:
+    """4h (2): kernel #4's coarse operator against galerkin_boxmg (comb
+    probing) on the same operator and transfer, at every fused_rap level of
+    the 1026^2 box (1026^2, 513^2, 257^2) and of the 1023 x 771 box: f64
+    within 1e-12 of each plane's largest value, f32 within
+    galerkin_f32_bound."""
+    from fluidsolver_tpu_torch.poisson import boxmg, cuda_rap
+
+    for dtype in (torch.float64, torch.float32):
+        for shape in ((1026, 1026), (1023, 771)):
+            for op in rap_levels(shape, dtype, device):
+                lshape = tuple(op.aC.shape)
+                tr, coarse = cuda_rap.fused_rap_cuda(op)
+                probe = boxmg.galerkin_boxmg(op, tr, lshape)
+                worst, worst_share = 0.0, 0.0
+                bounds = galerkin_f32_bound(op, tr, lshape) if dtype == torch.float32 else None
+                for k, name in enumerate(boxmg.COEF_NAMES):
+                    got, want = getattr(coarse, name), getattr(probe, name)
+                    diff = (got.double() - want.double()).abs()
+                    scale = float(want.abs().max()) or 1.0
+                    worst = max(worst, float(diff.max()) / scale)
+                    if bounds is None:
+                        require(float(diff.max()) <= 1e-12 * scale,
+                                f"fused_rap f64 level {lshape} {name}: {float(diff.max()) / scale:.3e} of the "
+                                "plane's largest value from galerkin_boxmg (> 1e-12)")
+                    else:
+                        share = float((diff / bounds[k].clamp_min(1e-300)).max())
+                        worst_share = max(worst_share, share)
+                        require(bool((diff <= bounds[k]).all()),
+                                f"fused_rap f32 level {lshape} {name}: off galerkin_boxmg by up to {share:.3f} "
+                                "of the rounding bound")
+                extra = "" if bounds is None else f", {worst_share:.3e} of the f32 rounding bound at most"
+                log(f"  fused_rap vs galerkin_boxmg, {str(dtype)[6:]} level {lshape}: max |diff| {worst:.3e} "
+                    f"of a plane's largest value{extra}")
+
+
+def hierarchy_shape(levels) -> list:
+    return [(tuple(lv.op.aC.shape), "tail" if lv.tail is not None else
+             "inverse" if lv.coarse_inv is not None else "fused_rap" if lv.tr is not None else "swept")
+            for lv in levels]
+
+
+def run_drop(dev, poison: bool, solves: list, rings: list):
+    """The golden drop (phase 4b) in f64 on ``dev`` under FS_NAN_POISON=1 or
+    0, each pressure solve recorded into ``solves`` and, for every
+    calc_dmomdt / calc_drhodt call (the CPU path; the card runs kernel #8),
+    whether its synthesized rings are all NaN (True), all zero (False) or
+    neither (None) into ``rings``. Returns (initial state, final state)."""
+    from fluidsolver_tpu_torch.ops import momentum as mom
+    from fluidsolver_tpu_torch.solvers import twophase
+
+    def ring_state(outs):
+        states = set()
+        for o in outs:
+            ring = torch.ones_like(o, dtype=torch.bool)
+            ring[1:-1, 1:-1] = False
+            vals = o[ring]
+            states.add(True if bool(torch.isnan(vals).all()) else False if bool((vals == 0).all()) else None)
+        return states.pop() if len(states) == 1 else None
+
+    def watched(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            rings.append(ring_state(out))
+            return out
+        return call
+
+    g, cfg, vf0, t_end = golden_drop()
+    saved = os.environ.get("FS_NAN_POISON")
+    dmom, drho = mom.calc_dmomdt, mom.calc_drhodt
+    os.environ["FS_NAN_POISON"] = "1" if poison else "0"
+    mom.calc_dmomdt, mom.calc_drhodt = watched(dmom), watched(drho)
+    try:
+        state0 = twophase.init_two_phase_state(g, cfg, vf0, torch.float64, dev)
+        with recorded_solves(solves):
+            state = twophase.run(state0, t_end, g, cfg)
+    finally:
+        mom.calc_dmomdt, mom.calc_drhodt = dmom, drho
+        if saved is None:
+            os.environ.pop("FS_NAN_POISON", None)
+        else:
+            os.environ["FS_NAN_POISON"] = saved
+    return g, state0, state
+
+
+def dense_inverse_phase(device, g_bench, cfg_bench, vf_bench) -> None:
+    """Phase 4h, f64: (1) the hierarchies: lid_driven(64)'s and the golden
+    drop's on the card end in the dense coarsest inverse with no tail, as
+    the JAX package's CPU path does; the f32 1026^2 operator still starts
+    its tail at level 3; lid_driven(64), 2 steps, and the drop take the same
+    PCG iterations solve by solve on the card and the CPU; (2)
+    galerkin_phase; (3) conserved_quantities of the drop at step 0 and
+    after its 15 steps, the card against the CPU, within 1e-12 of the sum of
+    the absolute terms (mass drift logged); (4) FS_NAN_POISON=1: the drop's
+    U, V, p and vf torch.equal over the interior to the unpoisoned run on
+    the card and on the CPU, and on the CPU every dmom and drho ring NaN
+    (zero unpoisoned); (5) the core/fields.py helpers and
+    ops.stencil.l1_norm on the bench's initial state, the card against the
+    CPU (max, min exact, sums within 1e-12)."""
+    from fluidsolver_tpu_torch.cases import get_case
+    from fluidsolver_tpu_torch.core import fields
+    from fluidsolver_tpu_torch.ops import momentum as mom
+    from fluidsolver_tpu_torch.ops import stencil
+    from fluidsolver_tpu_torch.poisson import boxmg, linsys
+    from fluidsolver_tpu_torch.solvers import twophase
+
+    cpu = torch.device("cpu")
+    # (1) the hierarchies and their iterations
+    case = get_case("lid_driven", n=64)
+    case.cfg = dataclasses.replace(case.cfg, pressure_tol=1e-11)
+    its = {}
+    for where, dev in (("card", device), ("cpu", cpu)):
+        step = case.make_step(torch.float64, dev)
+        if where == "card":
+            log(f"  lid_driven(64) f64 hierarchy on the card: {hierarchy_shape(step.levels)}")
+            require(all(lv.tail is None for lv in step.levels) and step.levels[-1].coarse_inv is not None,
+                    "lid_driven(64) f64: the hierarchy must end in the dense inverse, with no tail")
+        solves = []
+        state = case.make_state(torch.float64, dev)
+        with recorded_solves(solves):
+            for _ in range(2):
+                state = step(state, case.t_end)
+        its[where] = [it for _, it, _ in solves]
+    log(f"  lid_driven(64) PCG iterations a solve: card {its['card']}, CPU {its['cpu']}")
+    require(its["card"] == its["cpu"], "lid_driven(64): the card's PCG iterations differ from the CPU's")
+
+    g, cfg, vf0, _ = golden_drop()
+    state0 = twophase.init_two_phase_state(g, cfg, vf0, torch.float64, device)
+    op = linsys.assemble_pressure_operator(state0.flow.rho_u, state0.flow.rho_v, g.dx, g.dy, cfg.pressure_pin)
+    levels = boxmg.build_hierarchy(op)
+    log(f"  golden drop f64 hierarchy on the card: {hierarchy_shape(levels)}")
+    require(all(lv.tail is None for lv in levels) and levels[-1].coarse_inv is not None,
+            "golden drop f64: the hierarchy must end in the dense inverse, with no tail")
+    levels32 = boxmg.build_hierarchy(random_operator(1026, 1026, seed=13, dtype=torch.float32, device=device))
+    log(f"  1026^2 f32 hierarchy on the card: {hierarchy_shape(levels32)}")
+    require([lv.tail is not None for lv in levels32] == [False] * 3 + [True]
+            and levels32[-1].tail.shapes[0] == (129, 129),
+            "1026^2 f32: the tail must start at level 3 (129^2)")
+
+    # (2) kernel #4 against the comb probe
+    galerkin_phase(device)
+
+    # (3), (4) the drop, plain and poisoned, on the card and on the CPU
+    runs = {}
+    for where, dev in (("card", device), ("cpu", cpu)):
+        for poison in (False, True):
+            solves, rings = [], []
+            _, s0, s1 = run_drop(dev, poison, solves, rings)
+            runs[(where, poison)] = (s0, s1, [it for _, it, _ in solves], rings)
+    its_g, its_c = runs[("card", False)][2], runs[("cpu", False)][2]
+    log(f"  golden drop PCG iterations a solve: card {its_g}, CPU {its_c}")
+    require(its_g == its_c, "golden drop: the card's PCG iterations differ from the CPU's")
+    for when, k in (("step 0", 0), ("step 15", 1)):
+        got = [runs[("card", False)][k].flow, runs[("cpu", False)][k].flow]
+        q = [mom.conserved_quantities(f.U, f.V, f.rho_u, f.rho_v, g.dx, g.dy) for f in got]
+        f = got[1]
+        scale = mom.conserved_quantities(f.U.abs(), f.V.abs(), f.rho_u, f.rho_v, g.dx, g.dy)
+        for name, a, b, s in zip(("mass", "x-momentum", "y-momentum"), q[0], q[1], scale):
+            a, b, s = float(a), float(b), float(s)
+            log(f"  conserved_quantities {when} {name}: card {a!r}, CPU {b!r}, |diff| {abs(a - b):.3e} "
+                f"(bound 1e-12 x {s:.6e})")
+            require(abs(a - b) <= 1e-12 * s, f"conserved_quantities {when} {name}: card and CPU differ")
+    for where in ("card", "cpu"):
+        m0, m1 = (float(mom.conserved_quantities(f.U, f.V, f.rho_u, f.rho_v, g.dx, g.dy)[0])
+                  for f in (runs[(where, False)][0].flow, runs[(where, False)][1].flow))
+        log(f"  golden drop mass drift over 15 steps ({where}): {(m1 - m0) / m0:.3e}")
+    for where in ("card", "cpu"):
+        plain, poisoned = runs[(where, False)][1], runs[(where, True)][1]
+        for name, a, b in (("U", plain.flow.U, poisoned.flow.U), ("V", plain.flow.V, poisoned.flow.V),
+                           ("p", plain.flow.p, poisoned.flow.p), ("vf", plain.vf, poisoned.vf)):
+            require(torch.equal(a[1:-1, 1:-1], b[1:-1, 1:-1]),
+                    f"FS_NAN_POISON=1 changed {name} on the {where} (interior not torch.equal)")
+        require(runs[(where, True)][2] == runs[(where, False)][2],
+                f"FS_NAN_POISON=1 changed the iterations ({where})")
+    rings_poisoned, rings_plain = runs[("cpu", True)][3], runs[("cpu", False)][3]
+    log(f"  FS_NAN_POISON=1: U, V, p, vf torch.equal over the interior on the card and the CPU; CPU rings "
+        f"checked in {len(rings_poisoned)} dmom/drho calls (NaN), {len(rings_plain)} unpoisoned (zero); "
+        f"calls on the card {len(runs[('card', True)][3])}")
+    require(rings_poisoned and all(r is True for r in rings_poisoned),
+            "FS_NAN_POISON=1 on the CPU: a dmom or drho ring is not all NaN")
+    require(rings_plain and all(r is False for r in rings_plain), "unpoisoned CPU run: a ring is not all zero")
+
+    # (5) the fields helpers and l1_norm on the bench's initial state
+    states = [twophase.init_two_phase_state(g_bench, cfg_bench, vf_bench, torch.float64, dev)
+              for dev in (device, cpu)]
+    for name in ("vf", "rho_u", "rho_v", "visc", "U"):
+        a, b = (getattr(s, name) if name == "vf" else getattr(s.flow, name) for s in states)
+        inner = fields.interior(a)
+        require(inner._base is a and torch.equal(inner.cpu(), fields.interior(b)), f"interior({name})")
+        flag = fields.has_nan_or_inf(a)
+        require(flag.device == a.device and flag.shape == () and flag.dtype == torch.bool
+                and not bool(flag) and not bool(fields.has_nan_or_inf(b)), f"has_nan_or_inf({name})")
+        bad = a.clone()
+        bad[5, 7] = float("nan")
+        require(bool(fields.has_nan_or_inf(bad)), f"has_nan_or_inf({name} with a NaN)")
+        for fn in (fields.abs_max, fields.fmax, fields.fmin):
+            require(float(fn(a)) == float(fn(b)), f"{fn.__name__}({name}): card {float(fn(a))!r}, CPU {float(fn(b))!r}")
+        for ghost in (False, True):
+            x, y = float(stencil.l1_norm(a, g_bench.dx, g_bench.dy, ghost)), float(
+                stencil.l1_norm(b, g_bench.dx, g_bench.dy, ghost))
+            require(abs(x - y) <= 1e-12 * abs(y), f"l1_norm({name}, include_ghost={ghost}): card {x!r}, CPU {y!r}")
+    log("  interior, has_nan_or_inf, abs_max, fmax, fmin (exact) and l1_norm (1e-12) on the bench state "
+        "(vf, rho_u, rho_v, visc, U; f64): the card equals the CPU")
+
+
 # ---- phase 14 ------------------------------------------------------------------
 MESH_NDEV = 4
 
@@ -4226,6 +4505,10 @@ def main(argv=None) -> int:
         phase = "4g extrapolation and MLS cross-check"
         log("phase 4g: ops/extrapolate.py and ib/mls.py, f64, GPU vs CPU at the CPU tests' sizes")
         extrapolate_mls_phase(device)
+        phase = "4h dense coarsest inverse and diagnostics"
+        log("phase 4h: the f64 hierarchies' dense coarsest inverse, fused_rap against galerkin_boxmg, "
+            "conserved_quantities, FS_NAN_POISON=1 and the fields helpers, GPU vs CPU")
+        dense_inverse_phase(device, g_bench, cfg_bench, vf_bench)
 
         phase = "5 full size"
         log("phase 5: lid_driven(1024) f32, 20 steps on the card")

@@ -36,6 +36,11 @@ def full_v(grid: Grid, value: float, dtype: torch.dtype, device) -> torch.Tensor
     return torch.full(grid.shape_v, value, dtype=dtype, device=device)
 
 
+def interior(f: torch.Tensor) -> torch.Tensor:
+    """View of the interior (ghost ring stripped)."""
+    return f[1:-1, 1:-1]
+
+
 def set_interior(f: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """Copy of ``f`` with its interior replaced (ghost ring kept)."""
     out = f.clone()
@@ -51,3 +56,23 @@ def pad_interior(values: torch.Tensor) -> torch.Tensor:
 def add_interior(f: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """``f`` plus ``values`` on the interior; the ghost ring adds zero."""
     return f + pad_interior(values)
+
+
+def has_nan_or_inf(f: torch.Tensor) -> torch.Tensor:
+    """0-d bool tensor on ``f``'s device, no host read (the reference's
+    src/Container.hpp:186-204)."""
+    return ~torch.all(torch.isfinite(f))
+
+
+def abs_max(f: torch.Tensor) -> torch.Tensor:
+    """max |f| over the whole array, ghosts included (the reference's
+    src/Utility.hpp abs_max)."""
+    return torch.max(torch.abs(f))
+
+
+def fmax(f: torch.Tensor) -> torch.Tensor:
+    return torch.max(f)
+
+
+def fmin(f: torch.Tensor) -> torch.Tensor:
+    return torch.min(f)

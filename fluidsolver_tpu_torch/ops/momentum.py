@@ -7,13 +7,22 @@ Conservative flux form with hybrid central/upwind interpolation at density
 jumps, the same expressions in the same floating-point order as the JAX
 package. Corner-mesh arrays have no ghosts and carry logical (i, j) in
 [0, nx+1) x [0, ny+1) directly.
+
+``FS_NAN_POISON=1`` is the reference's scratch-NaN debug mode
+(src/FS.hpp:163-171), read where the JAX package reads it: the ghost rings
+that ``calc_dmomdt`` and ``calc_drhodt`` synthesize around their interior
+results are NaN instead of zero, so a consumer that reads one instead of
+BC-filled data trips a NaN. It is the one environment variable the port
+reads; a correct run is bitwise the unpoisoned one.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+import torch.nn.functional as F
 
 from fluidsolver_tpu_torch.constants import vf_cutoffs
 from fluidsolver_tpu_torch.core.bc import apply_neumann_scalar
@@ -42,11 +51,19 @@ def _visc_corner(visc: torch.Tensor) -> torch.Tensor:
     return 0.25 * (visc[1:, 1:] + visc[:-1, 1:] + visc[1:, :-1] + visc[:-1, :-1])
 
 
+def _pad1(interior: torch.Tensor) -> torch.Tensor:
+    """Embed an interior-sized flux divergence into a synthesized ghost
+    ring: zero, or NaN under ``FS_NAN_POISON=1`` (the ring is un-written
+    scratch)."""
+    fill = math.nan if os.environ.get("FS_NAN_POISON") == "1" else 0.0
+    return F.pad(interior, (1, 1, 1, 1), value=fill)
+
+
 def calc_dmomdt(U, V, rho_u_old, rho_v_old, visc, p, p_jump_u, p_jump_v,
                 dx: float, dy: float, rho_eps: float):
     """d(rho u)/dt = -div(rho u u) + div(mu grad u) - grad p + p_jump.
 
-    Returns (dmomUdt, dmomVdt) with zero ghost rings."""
+    Returns (dmomUdt, dmomVdt) with synthesized ghost rings (:func:`_pad1`)."""
     # FXU on the center mesh: -rho*U^2 + 2*mu*dUdx - p
     rho_h, u_h = hybrid_interp(
         rho_eps, rho_u_old[:-1, :], rho_u_old[1:, :], U[:-1, :], U[1:, :], U[:-1, :], U[1:, :]
@@ -82,12 +99,12 @@ def calc_dmomdt(U, V, rho_u_old, rho_v_old, visc, p, p_jump_u, p_jump_v,
     dvdy = (V[:, 1:] - V[:, :-1]) / dy
     FYV = -rho_h * v_h * v_c + 2.0 * visc * dvdy - p
 
-    dmomU = pad_interior(
+    dmomU = _pad1(
         (FXU[1:, 1:-1] - FXU[:-1, 1:-1]) / dx
         + (FYU[:, 1:] - FYU[:, :-1]) / dy
         + p_jump_u[1:-1, 1:-1]
     )
-    dmomV = pad_interior(
+    dmomV = _pad1(
         (FXV[1:, :] - FXV[:-1, :]) / dx
         + (FYV[1:-1, 1:] - FYV[1:-1, :-1]) / dy
         + p_jump_v[1:-1, 1:-1]
@@ -105,7 +122,7 @@ def _hybrid_rho(rho_eps, rho_m, rho_p, transp_m, transp_p):
 
 def calc_drhodt(U, V, rho_u_old, rho_v_old, dx: float, dy: float, rho_eps: float):
     """Consistent mass/density transport with the same hybrid fluxes.
-    Returns (drho_u_dt, drho_v_dt) with zero ghost rings."""
+    Returns (drho_u_dt, drho_v_dt) with synthesized ghost rings (:func:`_pad1`)."""
     # FXU = -rho*U on the center mesh
     rho_h = _hybrid_rho(rho_eps, rho_u_old[:-1, :], rho_u_old[1:, :], U[:-1, :], U[1:, :])
     FXU = -rho_h * 0.5 * (U[:-1, :] + U[1:, :])
@@ -116,7 +133,7 @@ def calc_drhodt(U, V, rho_u_old, rho_v_old, dx: float, dy: float, rho_eps: float
     rho_h = _hybrid_rho(rho_eps, rho_u_old[1:-1, :-1], rho_u_old[1:-1, 1:], v_lo, v_hi)
     FYU = -rho_h * 0.5 * (v_lo + v_hi)
 
-    drho_u = pad_interior(
+    drho_u = _pad1(
         (FXU[1:, 1:-1] - FXU[:-1, 1:-1]) / dx + (FYU[:, 1:] - FYU[:, :-1]) / dy
     )
 
@@ -128,7 +145,7 @@ def calc_drhodt(U, V, rho_u_old, rho_v_old, dx: float, dy: float, rho_eps: float
     rho_h = _hybrid_rho(rho_eps, rho_v_old[:, :-1], rho_v_old[:, 1:], V[:, :-1], V[:, 1:])
     FYV = -rho_h * 0.5 * (V[:, :-1] + V[:, 1:])
 
-    drho_v = pad_interior(
+    drho_v = _pad1(
         (FXV[1:, :] - FXV[:-1, :]) / dx + (FYV[1:-1, 1:] - FYV[1:-1, :-1]) / dy
     )
     return drho_u, drho_v
@@ -177,6 +194,22 @@ def adjust_dt(U, V, rho_u, rho_v, visc, dx: float, dy: float,
     cfl = torch.maximum(torch.maximum(cfl_cx, cfl_cy), torch.maximum(cfl_vx, cfl_vy))
     cfl = torch.clamp_min(cfl, cfl_st)
     return torch.clamp_max(cfl_max / cfl, dt_max)
+
+
+def conserved_quantities(U, V, rho_u, rho_v, dx: float, dy: float):
+    """Mass, x- and y-momentum over the staggered interior (the reference's
+    src/FS.hpp:653-676), three 0-d tensors."""
+    vol = dx * dy
+    mass = torch.sum(
+        0.25 * (rho_u[1:-2, 1:-1] + rho_u[2:-1, 1:-1] + rho_v[1:-1, 1:-2] + rho_v[1:-1, 2:-1])
+    ) * vol
+    mom_x = torch.sum(
+        0.5 * (rho_u[1:-2, 1:-1] * U[1:-2, 1:-1] + rho_u[2:-1, 1:-1] * U[2:-1, 1:-1])
+    ) * vol
+    mom_y = torch.sum(
+        0.5 * (rho_v[1:-1, 1:-2] * V[1:-1, 1:-2] + rho_v[1:-1, 2:-1] * V[1:-1, 2:-1])
+    ) * vol
+    return mass, mom_x, mom_y
 
 
 def inflow_outflow(U, rho_u):

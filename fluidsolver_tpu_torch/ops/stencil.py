@@ -38,6 +38,11 @@ def integrate(f: torch.Tensor, dx: float, dy: float, include_ghost: bool = False
     return s * dx * dy
 
 
+def l1_norm(f: torch.Tensor, dx: float, dy: float, include_ghost: bool = False):
+    s = torch.sum(torch.abs(f)) if include_ghost else torch.sum(torch.abs(f[1:-1, 1:-1]))
+    return s * dx * dy
+
+
 def shift_pressure_to_zero(dp: torch.Tensor, dx: float, dy: float) -> torch.Tensor:
     """Gauge fix. The reference subtracts the volume integral (sum times cell
     volume), not the mean; kept as the JAX package keeps it."""

@@ -20,7 +20,8 @@ The same BoxMG-PCG as the single-device path (``poisson/boxmg.py`` +
   ``boxmg.restrict_box`` / ``prolong_box``. Below ``L_dist`` levels the
   coarse level is gathered onto ``devices[0]``, cropped to its real rows,
   and the rest of the hierarchy is the stock ``boxmg.build_hierarchy`` /
-  ``v_cycle`` there (kernels #1-#3 on CUDA).
+  ``v_cycle`` there (on CUDA: kernels #1-#3 in f32; in f64 #1 and #4 down
+  to the dense coarsest inverse, as the JAX package's CPU path).
 - **PCG with summed dots.** The recurrence of ``cg.solve_pcg`` and its
   guards (``cg.Guards``: stagnation window, breakdown guard, best iterate),
   every dot product a ``mesh.psum``; the projection masks the padding rows,

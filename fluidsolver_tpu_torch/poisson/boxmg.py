@@ -9,14 +9,18 @@ kernels that run it on the GPU live in ``cuda_rap`` (one level's setup),
 ``cuda_vcycle`` (smoothing phases with fused transfers) and ``cuda_tail``
 (the coarse tail's setup and cycle).
 
-Hierarchy structure is decided by shape alone, the same on CPU and GPU:
-levels above the tail get ``fused_rap`` + ``fused_smooth``; the tail starts
-at the first level whose remaining depth is in [2, MAX_TAIL_LEVELS] and
-whose largest side is at most MAX_TAIL_SIDE, and its coarsest level runs
-COARSE_SWEEPS symmetric sweeps (no dense inverse). This is the JAX
-package's TPU structure without its VMEM and dtype gates. The JAX package's
-CPU path instead keeps descending and solves the coarsest level with a
-dense inverse, so the two agree to the solve tolerance, not bitwise.
+Hierarchy structure is decided by shape and dtype alone, the same on CPU
+and GPU, and is the JAX package's: an f32 hierarchy starts the tail at the
+first level whose remaining depth is in [2, MAX_TAIL_LEVELS] and whose
+largest side is at most MAX_TAIL_SIDE (the tail's coarsest level runs
+COARSE_SWEEPS symmetric sweeps in the kernel); the levels above it get
+``fused_rap`` + ``fused_smooth``. The tail is f32 only, as in the JAX
+package (whose tail gate refuses any other dtype); every other hierarchy,
+and an f32 one whose tail does not fit, descends with ``fused_rap`` to the
+JAX package's stop and, when its coarsest level is small enough
+(``_direct``), solves it with the dense inverse (``_dense_coarse_inverse``,
+one matrix-vector product a V-cycle). Only a coarsest level too large for
+the inverse is swept COARSE_SWEEPS times, as the JAX package's is.
 
 A low-precision hierarchy (``pressure_precond_dtype``, bf16) is the JAX
 package's ``cast_hierarchy``: the levels are built at full precision with
@@ -43,7 +47,7 @@ COARSEST = 4
 # symmetric sweep pairs x2 on the coarsest level
 COARSE_SWEEPS = 32
 # the JAX package's dense-inverse stop: a level this small is the coarsest;
-# the tail sweeps it, a cast hierarchy inverts it densely
+# an f32 tail sweeps it, every other hierarchy inverts it densely
 DIRECT_COARSEST = 16
 DIRECT_CAP = 512
 MAX_TAIL_LEVELS = 6
@@ -137,6 +141,12 @@ def _pad_to(a, shape):
     return F.pad(a, (0, shape[1] - a.shape[1], 0, shape[0] - a.shape[0]))
 
 
+def stride2(a: torch.Tensor, i0: int = 0, j0: int = 0) -> torch.Tensor:
+    """``a[i0::2, j0::2]`` (the JAX package's form of it only avoids TPU
+    gathers)."""
+    return a[i0::2, j0::2]
+
+
 def collapse_weights(op: Operator) -> BoxTransfer:
     """Operator-collapsed interpolation weights (Dendy 1982 eqs. 3.2-3.5).
 
@@ -215,6 +225,36 @@ def restrict_box(tr: BoxTransfer, r: torch.Tensor) -> torch.Tensor:
     out = out + tr.pSW * T + prev(tr.pSE * T, 1, 0)
     out = out + prev(tr.pNW * T, 0, 1) + prev(tr.pNE * T, 1, 1)
     return out
+
+
+def galerkin_boxmg(op: Operator, tr: BoxTransfer, fine_shape) -> Stencil9:
+    """Galerkin coarse operator A_c = P^T A P by comb probing: the
+    independent oracle of :func:`galerkin_closed` (never on the solve's
+    path).
+
+    A_c is 9-point, so coarse points whose indices agree mod 3 are never
+    coupled: nine probes R(A(P(comb))) with period-3 combs recover every
+    entry exactly."""
+    Nc, Mc = tr.pW.shape
+    dev = tr.pW.device
+    I = torch.arange(Nc, device=dev)[:, None]
+    J = torch.arange(Mc, device=dev)[None, :]
+    Y = {}
+    for a in range(3):
+        for b in range(3):
+            comb = (((I % 3) == a) & ((J % 3) == b)).to(tr.pW.dtype)
+            Y[(a, b)] = restrict_box(tr, apply_any(op, prolong_box(tr, comb, fine_shape)))
+
+    def coef(dI, dJ):
+        # entry A_c((I, J) -> (I + dI, J + dJ)) lives in the comb of that class
+        out = torch.zeros((Nc, Mc), dtype=tr.pW.dtype, device=dev)
+        for (a, b), y in Y.items():
+            mask = (((I + dI) % 3) == a) & (((J + dJ) % 3) == b)
+            out = out + torch.where(mask, y, torch.zeros_like(y))
+        valid = (I + dI >= 0) & (I + dI < Nc) & (J + dJ >= 0) & (J + dJ < Mc)
+        return torch.where(valid, out, torch.zeros_like(out))
+
+    return Stencil9(**{name: coef(*_A_OFFSETS[name]) for name in COEF_NAMES})
 
 
 # ---- closed-form Galerkin product ------------------------------------------
@@ -358,12 +398,15 @@ class BoxLevel:
 
 def build_hierarchy(op: StencilOp, tail: bool = True) -> list:
     """Finest level keeps the 5-point operator; coarse levels are 9-point.
-    Levels above the tail are built by ``fused_rap``; the tail (all levels
-    from its start down) by one ``build_tail_pack`` launch. ``tail=False``
-    builds every level with ``fused_rap`` down to the coarsest (the
-    full-precision build of :func:`cast_hierarchy`)."""
+    Levels above the tail are built by ``fused_rap``; an f32 tail (all
+    levels from its start down) by one ``build_tail_pack`` launch. Without
+    a tail (another dtype, a tail that does not fit, or ``tail=False``: the
+    full-precision build of :func:`cast_hierarchy`) every level is built
+    with ``fused_rap`` down to the coarsest, which gets the dense inverse
+    when it is small enough (the JAX package's ``build_hierarchy``)."""
     from fluidsolver_tpu_torch.poisson import cuda_rap, cuda_tail
 
+    tail = tail and op.aC.dtype == torch.float32
     levels = []
     cur = op
     while True:
@@ -373,7 +416,7 @@ def build_hierarchy(op: StencilOp, tail: bool = True) -> list:
             levels.append(BoxLevel(op=cur, tail=cuda_tail.build_tail_pack(cur, n_rem)))
             return levels
         if n_rem == 1:
-            levels.append(BoxLevel(op=cur))
+            levels.append(BoxLevel(op=cur, coarse_inv=_dense_coarse_inverse(cur) if _direct(shape) else None))
             return levels
         tr, cur_next = cuda_rap.fused_rap(cur)
         levels.append(BoxLevel(op=cur, tr=tr))
@@ -425,15 +468,12 @@ def cast_hierarchy(levels: list, dtype) -> list:
     """The hierarchy ``levels`` (built with ``tail=False``: the tail's
     kernels take f32 and f64 only) with every plane cast to ``dtype``
     (bf16: half the V-cycle's bytes), built at full precision and rounded
-    once (the JAX package's ``cast_hierarchy``); the coarsest level, if
-    small enough, gets the f32 dense inverse of its full-precision
-    operator."""
+    once (the JAX package's ``cast_hierarchy``); the coarsest level keeps
+    the dense inverse of its full-precision operator (f32 at least)."""
     if levels[-1].tail is not None:
         raise ValueError("cast a hierarchy built without the tail (build_hierarchy(op, tail=False))")
-    out = [BoxLevel(op=cast_struct(l.op, dtype), tr=cast_struct(l.tr, dtype)) for l in levels]
-    if _direct(tuple(out[-1].op.aC.shape)):
-        out[-1].coarse_inv = _dense_coarse_inverse(levels[-1].op)
-    return out
+    return [BoxLevel(op=cast_struct(l.op, dtype), tr=cast_struct(l.tr, dtype), coarse_inv=l.coarse_inv)
+            for l in levels]
 
 
 def v_cycle(levels: list, b: torch.Tensor, n_pre: int = 1, n_post: int = 1) -> torch.Tensor:

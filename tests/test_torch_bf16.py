@@ -79,7 +79,13 @@ def jump_level(nx, ny, seed):
     op = jlin.assemble_pressure_operator(rho_u, rho_v, g.dx, g.dy, None)
     b = jnp.asarray(rng.normal(size=g.shape_center))
     x0 = jnp.asarray(rng.normal(size=g.shape_center))
-    return op, jbox.collapse_weights(op), b, x0
+    return op, _collapse(op), b, x0
+
+
+# the JAX package's transfer weights and Galerkin product under jit (one
+# compile a shape instead of eager JAX's per-operation dispatch)
+_collapse = jax.jit(jbox.collapse_weights)
+_galerkin = jax.jit(jbox.galerkin_closed, static_argnums=2)
 
 
 def drop_system(n, pin=None, ratio=1000.0):
@@ -145,7 +151,7 @@ def test_fused_smooth_bf16_nine_point():
     """A 9-point (Galerkin) level, residual form, against the f32 XLA oracle
     on the widened operands."""
     op, tr, b, x0 = jump_level(30, 22, seed=11)
-    op9 = jcast(jbox.galerkin_closed(op, tr, op.aC.shape), jnp.bfloat16)
+    op9 = jcast(_galerkin(op, tr, tuple(op.aC.shape)), jnp.bfloat16)
     op9_32 = jcast(op9, jnp.float32)
     rng = np.random.default_rng(3)
     b16 = jnp.asarray(rng.normal(size=op9.aC.shape)).astype(jnp.bfloat16)
@@ -217,9 +223,11 @@ def test_cast_hierarchy_matches_jax(shape):
         assert np.abs(diff).max() <= inv_tol * np.abs(want_p).max(), np.abs(diff).max()
 
 
-# the JAX hierarchy's coarsest operator, jitted once for both pins (one
-# compile for the drop's shapes instead of eager JAX's per-operation ones)
+# the JAX hierarchy's coarsest operator and the dense inverse, jitted once
+# for both pins (one compile for the drop's shapes instead of eager JAX's
+# per-operation ones)
 _jax_coarsest = jax.jit(lambda op: jbox.build_hierarchy(op)[-1].op)
+_jax_inverse = jax.jit(jbox._dense_coarse_inverse)
 
 
 @pytest.mark.parametrize("pin", [None, "left"])
@@ -229,7 +237,7 @@ def test_dense_coarse_inverse_matches_jax(pin):
     _, op = drop_system(32, pin=pin)
     coarsest = _jax_coarsest(op)
     for jop in (coarsest, jlin.StencilOp(*(getattr(op, n)[:12, :10] for n in ("aC", "aL", "aR", "aB", "aT")))):
-        want = np.asarray(jbox._dense_coarse_inverse(jop))
+        want = np.asarray(_jax_inverse(jop))
         got = boxmg._dense_coarse_inverse(to_port(jop))
         assert got.dtype == torch.float64
         np.testing.assert_allclose(got.numpy(), want, rtol=0.0, atol=1e-12 * np.abs(want).max())

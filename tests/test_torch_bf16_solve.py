@@ -7,7 +7,9 @@ kernels' twins, the cast hierarchy and the dense inverse are held in
 ``tests/test_torch_bf16.py``."""
 
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,8 +57,8 @@ def test_pcg_bf16_preconditioner_converges(drop64, precond):
     assert float(rel) < 1e-8
     np.testing.assert_allclose(x16.numpy(), x_true, atol=1e-4)
     assert it16 <= 2 * it32, (it16, it32)
-    _, _, jit16 = jcg.solve_pcg(jop, jb, tol=1e-8, max_iter=200, singular=True, precond=precond,
-                                precond_dtype=jnp.bfloat16)
+    _, _, jit16 = jax.jit(functools.partial(jcg.solve_pcg, tol=1e-8, max_iter=200, singular=True,
+                                            precond=precond, precond_dtype=jnp.bfloat16))(jop, jb)
     assert abs(it16 - int(jit16)) <= 2, (it16, int(jit16))
 
 

@@ -22,12 +22,15 @@ torch.set_num_threads(1)
 
 
 def test_expanding_bubble_against_jax():
-    """expanding_bubble(n=24): U, V, p, vf and the interface length to 1e-8
-    relative; the curvature to 1e-7: a cell at vf = 0.999998 takes its
-    plane near the corner, where the plane constant's square root turns
-    the solves' 1e-10 velocity differences into 1.4e-7 of curvature (2.4e-8
-    of the largest), in step 3."""
-    state = run_against_jax("expanding_bubble", dict(n=24), {}, tols={"curv": 1e-7})
+    """expanding_bubble(n=24), relative to each field's largest value
+    (measured in brackets): U, V, p to 1e-10 (2.6e-12), vf to 1e-9
+    (7.6e-11), the interface length to 1e-11 (2.0e-13) and the curvature
+    to 1e-7 (2.0e-8): a cell at vf = 0.999998 takes its plane near the
+    corner, where the plane constant's square root turns rounding-level
+    differences into curvature, in step 3."""
+    state = run_against_jax("expanding_bubble", dict(n=24), {},
+                            tols={"U": 1e-10, "V": 1e-10, "p": 1e-10, "vf": 1e-9, "curv": 1e-7,
+                                  "interface_length": 1e-11})
     assert float(state.flow.t) > 0.0
 
 

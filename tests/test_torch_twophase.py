@@ -1,10 +1,11 @@
 """The port's two-phase VOF step against the JAX package, in f64 on the
 CPU, where every kernel module runs its plain PyTorch twin.
 
-The port's BoxMG coarsest level is swept where the JAX package's CPU path
-inverts it densely, so the two agree to the pressure-solve tolerance, not
-bitwise: the golden drop (tol 1e-10) is held to 1e-8 relative on U, V, p,
-vf and curv, the bound of ``test_torch_slice.py``.
+Both packages solve with the same BoxMG hierarchy (the dense coarsest
+inverse in f64), so the steps agree to rounding: the golden drop (tol
+1e-10) and the channel are held to 1e-12 relative on U, V, p, vf and curv,
+the bound of ``test_torch_slice.py``, and the channel's PCG iterations are
+equal.
 """
 
 import dataclasses
@@ -24,7 +25,7 @@ from fluidsolver_tpu_torch.solvers.config import config_from_jax
 from tests.golden_cases import two_phase_drop
 
 torch.set_num_threads(1)
-TOL = 1e-8
+TOL = 1e-12
 
 
 def max_rel(got, want):
@@ -70,10 +71,11 @@ def test_two_phase_channel_against_jax(refresh):
         # dt > 0, then one exit test per PCG iteration and one per solve
         assert sync.count - s0 == 1 + int(state.flow.p_iter) + tcase.cfg.num_subiter
         assert float(state.flow.t) == pytest.approx(float(jstate.flow.t), rel=1e-14)
+        assert int(state.flow.p_iter) == int(jstate.flow.p_iter)
         for k in ("U", "V", "p"):
-            assert max_rel(getattr(state.flow, k), getattr(jstate.flow, k)) <= TOL, k
+            assert max_rel(getattr(state.flow, k), getattr(jstate.flow, k)) <= TOL, (k, max_rel(getattr(state.flow, k), getattr(jstate.flow, k)))
         for k in ("vf", "curv", "interface_length"):
-            assert max_rel(getattr(state, k), getattr(jstate, k)) <= TOL, k
+            assert max_rel(getattr(state, k), getattr(jstate, k)) <= TOL, (k, max_rel(getattr(state, k), getattr(jstate, k)))
         assert float(state.vof_vol_error) == pytest.approx(float(jstate.vof_vol_error), rel=1e-6, abs=1e-15)
 
 

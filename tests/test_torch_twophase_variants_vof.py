@@ -1,6 +1,6 @@
 """The port's two-phase step with the other curvature estimators and the
 staggered backtrace, against the JAX package, in f64 on the CPU, as in
-``test_torch_twophase_variants.py`` (two_phase_channel, 3 steps, 1e-8
+``test_torch_twophase_variants.py`` (two_phase_channel, 3 steps, 1e-12
 relative at a pressure tolerance of 1e-11).
 
 The convolved curvature runs at ny=32: at ny=16 the drop's radius is 1.8
