@@ -2362,13 +2362,12 @@ def device_events(prof) -> list:
 def profile_steps(run_step, n: int):
     """Profile ``n`` calls of ``run_step``. Returns (device time by kernel
     name -> (us, launches), busy us, wall us, range name -> device us). A
-    kernel counts toward a ``twophase.*`` profiler range, and toward the
-    PCG loop's guard range nested in the pressure range, when it starts
-    inside that range's span on the device timeline."""
-    from fluidsolver_tpu_torch.poisson import cg
+    kernel counts toward each of the program's profiler ranges
+    (``twophase.*``, ``pcg.*``) whose span on the device timeline it starts
+    inside; the ranges' own device-side spans are no work."""
 
     def is_range(name):
-        return name.startswith("twophase.") or name == cg.GUARD_RANGE
+        return name.startswith(("twophase.", "pcg."))
 
     with device_trace() as prof:
         t0 = time.perf_counter()

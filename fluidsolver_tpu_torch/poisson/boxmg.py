@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from fluidsolver_tpu_torch.poisson.linsys import StencilOp, apply_op, shift
+from fluidsolver_tpu_torch.utils import profiling
 
 MAX_LEVELS = 16
 COARSEST = 4
@@ -476,8 +477,17 @@ def cast_hierarchy(levels: list, dtype) -> list:
             for l in levels]
 
 
+# the profiler ranges of the V-cycle's smoothing phases (one ``fused_smooth``
+# launch each), suffixed with the level's shape: ``pcg.smooth.restrict.NxM``
+SMOOTH_RESTRICT = "pcg.smooth.restrict"
+SMOOTH_CORRECT = "pcg.smooth.correct"
+SMOOTH_COARSE = "pcg.smooth.coarse"
+
+
 def v_cycle(levels: list, b: torch.Tensor, n_pre: int = 1, n_post: int = 1) -> torch.Tensor:
-    """One symmetric V(n_pre, n_post) cycle from a zero initial guess."""
+    """One symmetric V(n_pre, n_post) cycle from a zero initial guess. Each
+    smoothing phase runs inside the profiler range of its form and level
+    shape (``SMOOTH_RESTRICT``, ``SMOOTH_CORRECT``, ``SMOOTH_COARSE``)."""
     from fluidsolver_tpu_torch.poisson import cuda_tail, cuda_vcycle
 
     def cycle(lvl, b_l):
@@ -492,12 +502,15 @@ def v_cycle(levels: list, b: torch.Tensor, n_pre: int = 1, n_post: int = 1) -> t
             # coarsest level without a tail: symmetric sweep pairs
             x = None
             for _ in range(COARSE_SWEEPS // 2):
-                x = cuda_vcycle.fused_smooth(level.op, b_l, x0=x, colors=(True, False, False, True))
+                with profiling.annotate(SMOOTH_COARSE, *b_l.shape):
+                    x = cuda_vcycle.fused_smooth(level.op, b_l, x0=x, colors=(True, False, False, True))
             return x
-        x, bc = cuda_vcycle.fused_smooth(level.op, b_l, colors=(True, False) * n_pre,
-                                         tr=level.tr, restrict=True)
+        with profiling.annotate(SMOOTH_RESTRICT, *b_l.shape):
+            x, bc = cuda_vcycle.fused_smooth(level.op, b_l, colors=(True, False) * n_pre,
+                                             tr=level.tr, restrict=True)
         ec = cycle(lvl + 1, bc)
-        return cuda_vcycle.fused_smooth(level.op, b_l, x0=x, colors=(False, True) * n_post,
-                                        tr=level.tr, ec=ec)
+        with profiling.annotate(SMOOTH_CORRECT, *b_l.shape):
+            return cuda_vcycle.fused_smooth(level.op, b_l, x0=x, colors=(False, True) * n_post,
+                                            tr=level.tr, ec=ec)
 
     return cycle(0, b)

@@ -22,24 +22,28 @@ The work of an iteration outside the preconditioner runs as kernels 5-7
 (``poisson/cuda_cg.py``): ``step_init`` and ``step_c``'s init form before
 the loop, ``step_ab`` and ``step_c`` in it, as the JAX package's fused
 branch (``FS_PALLAS_CG``) has them. On CPU tensors they run their twins.
+
+Profiler ranges (``utils.profiling.annotate``): ``HIERARCHY_RANGE`` around
+each hierarchy build, ``SOLVE_RANGE`` around a PCG solve from its first
+kernel to its return, and inside it ``GUARD_RANGE`` around each
+iteration's guards (and ``boxmg.v_cycle``'s smoothing ranges).
 """
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
 from fluidsolver_tpu_torch.core import sync
 from fluidsolver_tpu_torch.poisson import _kernels, boxmg, cuda_cg, mg
 from fluidsolver_tpu_torch.poisson.linsys import StencilOp
+from fluidsolver_tpu_torch.utils import profiling
 
 _MG = {"mg": mg, "boxmg": boxmg}
-# the profiler range of an iteration's guard selects and bookkeeping, opened
-# only while a profiler records (a range costs about as much host time as a
-# tensor operation)
+HIERARCHY_RANGE = "pcg.hierarchy"
+SOLVE_RANGE = "pcg.solve"
+# an iteration's guard selects and bookkeeping
 GUARD_RANGE = "pcg.guards"
 
 
@@ -50,14 +54,15 @@ def build_precond_levels(op: StencilOp, precond: str, precond_dtype=None):
     dtype, if it differs from the operator's."""
     if precond not in _MG:
         return None
-    if precond_dtype is not None:
-        precond_dtype = _kernels.torch_dtype(precond_dtype)
-        if precond_dtype != op.aC.dtype:
-            if precond == "boxmg":
-                # built at full precision and rounded once
-                return boxmg.cast_hierarchy(boxmg.build_hierarchy(op, tail=False), precond_dtype)
-            op = boxmg.cast_struct(op, precond_dtype)
-    return _MG[precond].build_hierarchy(op)
+    with profiling.annotate(HIERARCHY_RANGE):
+        if precond_dtype is not None:
+            precond_dtype = _kernels.torch_dtype(precond_dtype)
+            if precond_dtype != op.aC.dtype:
+                if precond == "boxmg":
+                    # built at full precision and rounded once
+                    return boxmg.cast_hierarchy(boxmg.build_hierarchy(op, tail=False), precond_dtype)
+                op = boxmg.cast_struct(op, precond_dtype)
+        return _MG[precond].build_hierarchy(op)
 
 
 def _levels_dtype(levels) -> torch.dtype:
@@ -158,18 +163,19 @@ def solve_pcg(op: StencilOp, b: torch.Tensor, tol: float, max_iter: int, singula
     def project(v):
         return v - torch.mean(v) if singular else v
 
-    x, r, bb, rr, sum_r = cuda_cg.step_init(op, b, None if x0 is None else x0.to(b.dtype), singular)
-    b_norm = torch.sqrt(bb)
-    safe_b_norm = torch.where(b_norm > 0.0, b_norm, torch.ones_like(b_norm))
-    _, p, rz = cuda_cg.step_c(r, M_inv(r), None, torch.ones_like(bb), singular, sum_r=sum_r)
-    guards = Guards(torch.sqrt(rr) / safe_b_norm, b_norm, x)
+    with profiling.annotate(SOLVE_RANGE):
+        x, r, bb, rr, sum_r = cuda_cg.step_init(op, b, None if x0 is None else x0.to(b.dtype), singular)
+        b_norm = torch.sqrt(bb)
+        safe_b_norm = torch.where(b_norm > 0.0, b_norm, torch.ones_like(b_norm))
+        _, p, rz = cuda_cg.step_c(r, M_inv(r), None, torch.ones_like(bb), singular, sum_r=sum_r)
+        guards = Guards(torch.sqrt(rr) / safe_b_norm, b_norm, x)
 
-    k = 0
-    while k < max_iter and guards.running(tol):
-        x_new, r_new, pAp, rr, sum_r = cuda_cg.step_ab(op, x, r, p, rz)
-        _, p_new, rz_new = cuda_cg.step_c(r_new, M_inv(r_new), p, rz, singular, sum_r=sum_r)
-        with record_function(GUARD_RANGE) if torch.autograd._profiler_enabled() else nullcontext():
-            x, r, p, rz = guards.accept(pAp, torch.sqrt(rr) / safe_b_norm, rz_new, (x_new, r_new, p_new),
-                                        (x, r, p), rz)
-        k += 1
-    return project(guards.x_best), guards.best, k
+        k = 0
+        while k < max_iter and guards.running(tol):
+            x_new, r_new, pAp, rr, sum_r = cuda_cg.step_ab(op, x, r, p, rz)
+            _, p_new, rz_new = cuda_cg.step_c(r_new, M_inv(r_new), p, rz, singular, sum_r=sum_r)
+            with profiling.annotate(GUARD_RANGE):
+                x, r, p, rz = guards.accept(pAp, torch.sqrt(rr) / safe_b_norm, rz_new,
+                                            (x_new, r_new, p_new), (x, r, p), rz)
+            k += 1
+        return project(guards.x_best), guards.best, k

@@ -21,6 +21,13 @@ divergence. ``ib`` may be a callable of the state (a solid that moves with
 time) and ``div_source(state, dt)`` adds a mass source to the divergence;
 both are evaluated on the device. The step reads ``dt > 0`` and each
 solver iteration's exit test back to the host (``core.sync``).
+
+Each stage runs inside a profiler range (``utils.profiling.annotate``):
+``DT_RANGE``, and in each subiteration ``MOMENTUM_RANGE`` (with the BCs,
+the flow and IB forcing), ``RHS_RANGE``, ``PRESSURE_RANGE`` and
+``PROJECTION_RANGE``; the two-phase step opens the same ones. Outside them
+are only ``dt > 0``, the zero warm start of the subiterations and
+``t + dt``.
 """
 
 from __future__ import annotations
@@ -41,11 +48,22 @@ from fluidsolver_tpu_torch.poisson.direct import solve_direct
 from fluidsolver_tpu_torch.solvers.config import SolverConfig
 from fluidsolver_tpu_torch.solvers.state import (FlowState, clamp_dt_to_end,
                                                   end_tolerance, save_old)
+from fluidsolver_tpu_torch.utils import profiling
 
 
 PRESSURE_SOLVERS = ("mg", "boxmg", "jacobi", "none", "direct")
 PRESSURE_METHODS = ("pcg", "bicgstab", "gmres", "mgsolve")
 IB_MODES = (None, "diffuse", "sharp", "luchini", "luchini_implicit")
+
+# profiler ranges around the stages of a step, shared by the two-phase step
+# (which adds ``twophase.vof``); the benchmark's trace reader takes ranges
+# by their ``twophase.`` and ``pcg.`` prefixes, so the single-phase step
+# names its stages under ``twophase.`` too
+DT_RANGE = "twophase.dt"
+MOMENTUM_RANGE = "twophase.momentum"
+RHS_RANGE = "twophase.rhs"
+PRESSURE_RANGE = "twophase.pressure"
+PROJECTION_RANGE = "twophase.projection"
 
 
 def _check_supported(cfg: SolverConfig) -> None:
@@ -177,76 +195,81 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, ib=None
                                fields.full_v(grid, cfg.rho_gas, dtype, device), grid, cfg)
 
     def subiter(state: FlowState, dp_prev, dt, k: int):
-        ib_f = ib(state) if callable(ib) else ib
-        U = stencil.mid_time(state.U, state.U_old)
-        V = stencil.mid_time(state.V, state.V_old)
-        dmomU, dmomV = mom.calc_dmomdt(
-            U, V, state.rho_u_old, state.rho_v_old, state.visc, state.p,
-            state.p_jump_u, state.p_jump_v, grid.dx, grid.dy, rho_eps,
-        )
-        if cfg.gravity != (0.0, 0.0):
-            gx, gy = cfg.gravity
-            dmomU = fields.add_interior(dmomU, gx * state.rho_u[1:-1, 1:-1])
-            dmomV = fields.add_interior(dmomV, gy * state.rho_v[1:-1, 1:-1])
-        if cfg.ib_mode == "luchini":
-            U, V = luchini.update_velocity_semi_analytical(
-                dmomU, dmomV, dt, ib_f, state.U_old, state.V_old, state.rho_u_old,
-                state.rho_v_old, state.rho_u, state.rho_v, state.visc, U, V)
-        else:
-            U, V = mom.update_velocity(
-                state.U_old, state.V_old, state.rho_u_old, state.rho_v_old,
-                state.rho_u, state.rho_v, dmomU, dmomV, dt, U, V,
+        with profiling.annotate(MOMENTUM_RANGE):
+            ib_f = ib(state) if callable(ib) else ib
+            U = stencil.mid_time(state.U, state.U_old)
+            V = stencil.mid_time(state.V, state.V_old)
+            dmomU, dmomV = mom.calc_dmomdt(
+                U, V, state.rho_u_old, state.rho_v_old, state.visc, state.p,
+                state.p_jump_u, state.p_jump_v, grid.dx, grid.dy, rho_eps,
             )
-            if cfg.ib_mode == "luchini_implicit":
-                U, V = luchini.correct_velocity_implicit_euler(U, V, ib_f, dt, state.visc,
-                                                               state.rho_u, state.rho_v)
-        U, V = bc_mod.apply_velocity_bcs(U, V, grid, cfg.bcs, state.t)
+            if cfg.gravity != (0.0, 0.0):
+                gx, gy = cfg.gravity
+                dmomU = fields.add_interior(dmomU, gx * state.rho_u[1:-1, 1:-1])
+                dmomV = fields.add_interior(dmomV, gy * state.rho_v[1:-1, 1:-1])
+            if cfg.ib_mode == "luchini":
+                U, V = luchini.update_velocity_semi_analytical(
+                    dmomU, dmomV, dt, ib_f, state.U_old, state.V_old, state.rho_u_old,
+                    state.rho_v_old, state.rho_u, state.rho_v, state.visc, U, V)
+            else:
+                U, V = mom.update_velocity(
+                    state.U_old, state.V_old, state.rho_u_old, state.rho_v_old,
+                    state.rho_u, state.rho_v, dmomU, dmomV, dt, U, V,
+                )
+                if cfg.ib_mode == "luchini_implicit":
+                    U, V = luchini.correct_velocity_implicit_euler(U, V, ib_f, dt, state.visc,
+                                                                   state.rho_u, state.rho_v)
+            U, V = bc_mod.apply_velocity_bcs(U, V, grid, cfg.bcs, state.t)
 
-        if cfg.outflow_correction:
-            _, _, mass_err = mom.inflow_outflow(U, state.rho_u)
-            U = mom.correct_outflow(U, state.rho_u, mass_err)
+            if cfg.outflow_correction:
+                _, _, mass_err = mom.inflow_outflow(U, state.rho_u)
+                U = mom.correct_outflow(U, state.rho_u, mass_err)
 
-        if cfg.flow_forcing is not None:
-            # drive the periodic channel to a fixed total mass flow
-            ncols = U.shape[1]
-            inflow = torch.sum(state.rho_u[0, :] * U[0, :] * grid.dy)
-            outflow = torch.sum(state.rho_u[-1, :] * U[-1, :] * grid.dy)
-            U = U.clone()
-            U[0, :] += (cfg.flow_forcing - inflow) / (state.rho_u[0, :] * grid.dy * ncols)
-            U[-1, :] += (cfg.flow_forcing - outflow) / (state.rho_u[-1, :] * grid.dy * ncols)
+            if cfg.flow_forcing is not None:
+                # drive the periodic channel to a fixed total mass flow
+                ncols = U.shape[1]
+                inflow = torch.sum(state.rho_u[0, :] * U[0, :] * grid.dy)
+                outflow = torch.sum(state.rho_u[-1, :] * U[-1, :] * grid.dy)
+                U = U.clone()
+                U[0, :] += (cfg.flow_forcing - inflow) / (state.rho_u[0, :] * grid.dy * ncols)
+                U[-1, :] += (cfg.flow_forcing - outflow) / (state.rho_u[-1, :] * grid.dy * ncols)
 
-        if cfg.ib_mode == "diffuse":
-            U, V, _, _ = diffuse.apply_direct_forcing(U, V, ib_f)
-        elif cfg.ib_mode == "sharp":
-            U, V = sharp.apply_forcing(U, V, ib_f)
+            if cfg.ib_mode == "diffuse":
+                U, V, _, _ = diffuse.apply_direct_forcing(U, V, ib_f)
+            elif cfg.ib_mode == "sharp":
+                U, V = sharp.apply_forcing(U, V, ib_f)
 
-        div = stencil.divergence(U, V, grid.dx, grid.dy)
-        if div_source is not None:
-            div = div + div_source(state, dt)
+        with profiling.annotate(RHS_RANGE):
+            div = stencil.divergence(U, V, grid.dx, grid.dy)
+            if div_source is not None:
+                div = div + div_source(state, dt)
         tol = cfg.pressure_tol
         if cfg.pressure_tol_intermediate is not None and k != cfg.num_subiter - 1:
             tol = cfg.pressure_tol_intermediate
-        delta_p, rel, iters = pressure_solve(
-            state, div, dt, grid, cfg,
-            x0=dp_prev if cfg.pressure_warm_start else None, levels=levels, tol=tol,
-        )
-        p = state.p + delta_p
-        U, V = project_velocity(U, V, delta_p, state.rho_u, state.rho_v, dt, grid.dx, grid.dy)
-        return dataclasses.replace(state, U=U, V=V, p=p, p_res=rel,
-                                   p_iter=state.p_iter + iters), delta_p
+        with profiling.annotate(PRESSURE_RANGE):
+            delta_p, rel, iters = pressure_solve(
+                state, div, dt, grid, cfg,
+                x0=dp_prev if cfg.pressure_warm_start else None, levels=levels, tol=tol,
+            )
+        with profiling.annotate(PROJECTION_RANGE):
+            p = state.p + delta_p
+            U, V = project_velocity(U, V, delta_p, state.rho_u, state.rho_v, dt, grid.dx, grid.dy)
+            return dataclasses.replace(state, U=U, V=V, p=p, p_res=rel,
+                                       p_iter=state.p_iter + iters), delta_p
 
     def step(state: FlowState, t_end: float) -> FlowState:
         if state.U.dtype != dtype or state.U.device != device:
             raise ValueError(f"step built for {dtype} on {device}, state is "
                              f"{state.U.dtype} on {state.U.device}")
-        dt = mom.adjust_dt(
-            state.U, state.V, state.rho_u, state.rho_v, state.visc,
-            grid.dx, grid.dy, cfg.rho_gas, cfg.rho_liquid, cfg.sigma,
-            cfg.cfl_max, cfg.dt_max,
-        )
-        dt = clamp_dt_to_end(dt, state.t, t_end)
-        state = save_old(state)
-        state = dataclasses.replace(state, p_iter=torch.zeros_like(state.p_iter))
+        with profiling.annotate(DT_RANGE):
+            dt = mom.adjust_dt(
+                state.U, state.V, state.rho_u, state.rho_v, state.visc,
+                grid.dx, grid.dy, cfg.rho_gas, cfg.rho_liquid, cfg.sigma,
+                cfg.cfl_max, cfg.dt_max,
+            )
+            dt = clamp_dt_to_end(dt, state.t, t_end)
+            state = save_old(state)
+            state = dataclasses.replace(state, p_iter=torch.zeros_like(state.p_iter))
         # dt == 0 (t_end reached) skips the physics: the Poisson RHS divides
         # by dt. Each subiteration warm-starts from the previous increment.
         if sync.read(dt > 0.0):

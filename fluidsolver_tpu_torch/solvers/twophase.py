@@ -46,8 +46,11 @@ velocity (ELVIRA, advection, interface length; no momentum, no pressure).
 
 Host reads per step: ``dt > 0`` and each solver iteration's exit test
 (``core.sync``); the VOF stage adds none, so the kinematic step has none.
-The VOF stage and the pressure solves run inside the profiler ranges
-``VOF_RANGE`` and ``PRESSURE_RANGE``.
+Each stage runs inside a profiler range (``utils.profiling.annotate``):
+``DT_RANGE``, ``VOF_RANGE``, and in each subiteration ``MOMENTUM_RANGE``,
+``RHS_RANGE``, ``PRESSURE_RANGE`` (the solve with its hierarchy build) and
+``PROJECTION_RANGE``. Outside them are only ``dt > 0``, the zero warm
+start of the subiterations and ``t + dt``.
 """
 
 from __future__ import annotations
@@ -59,7 +62,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from fluidsolver_tpu_torch.constants import vf_cutoffs
 from fluidsolver_tpu_torch.core import bc as bc_mod
@@ -70,19 +72,21 @@ from fluidsolver_tpu_torch.ops import momentum as mom
 from fluidsolver_tpu_torch.ops import stencil
 from fluidsolver_tpu_torch.solvers import incomp
 from fluidsolver_tpu_torch.solvers.config import SolverConfig
+from fluidsolver_tpu_torch.solvers.incomp import (DT_RANGE, MOMENTUM_RANGE, PRESSURE_RANGE,
+                                                   PROJECTION_RANGE, RHS_RANGE)
 from fluidsolver_tpu_torch.solvers.state import (FlowState, clamp_dt_to_end, end_tolerance,
                                                   init_flow_state, state_from_numpy,
                                                   state_to_numpy)
+from fluidsolver_tpu_torch.utils import profiling
 from fluidsolver_tpu_torch.vof import advect as adv
 from fluidsolver_tpu_torch.vof import plic
 from fluidsolver_tpu_torch.vof.curvature import (curvature_convolved_vf, curvature_quad_regression,
                                                   curvature_quad_volume_matching)
 
 
-# profiler ranges around the VOF stage and each pressure solve (with its
-# hierarchy build); a run's device time can be split by them
+# the profiler range around the VOF stage; the other stages' are
+# ``incomp``'s, shared by both steps
 VOF_RANGE = "twophase.vof"
-PRESSURE_RANGE = "twophase.pressure"
 
 
 @dataclasses.dataclass
@@ -203,54 +207,57 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
         # tangent_rhs / source: the tangential pull's and the phase change's
         # divergence terms over the interior (made once a step), or None
         vf_old, curv, iface_len, tangent_rhs, source = vof
-        U = stencil.mid_time(fs.U, fs.U_old)
-        V = stencil.mid_time(fs.V, fs.V_old)
+        with profiling.annotate(MOMENTUM_RANGE):
+            U = stencil.mid_time(fs.U, fs.U_old)
+            V = stencil.mid_time(fs.V, fs.V_old)
+            # consistent density transport, then momentum (+ gravity) in one
+            # stage, which reads the densities' interior only: the Neumann
+            # ghost fill comes after it
+            rho_u, rho_v, U, V = cuda_momentum.fused_momentum(
+                U, V, fs.U_old, fs.V_old, fs.rho_u_old, fs.rho_v_old, fs.rho_u, fs.rho_v, fs.visc,
+                fs.p, fs.p_jump_u, fs.p_jump_v, dt, dx=grid.dx, dy=grid.dy, rho_eps=rho_eps, gx=gx,
+                gy=gy)
+            rho_u = bc_mod.apply_neumann_scalar(rho_u)
+            rho_v = bc_mod.apply_neumann_scalar(rho_v)
+            U, V = bc_mod.apply_velocity_bcs(U, V, grid, cfg.bcs, fs.t)
+            if cfg.outflow_correction:
+                _, _, mass_err = mom.inflow_outflow(U, rho_u)
+                U = mom.correct_outflow(U, rho_u, mass_err)
 
-        # consistent density transport, then momentum (+ gravity) in one
-        # stage, which reads the densities' interior only: the Neumann ghost
-        # fill comes after it
-        rho_u, rho_v, U, V = cuda_momentum.fused_momentum(
-            U, V, fs.U_old, fs.V_old, fs.rho_u_old, fs.rho_v_old, fs.rho_u, fs.rho_v, fs.visc,
-            fs.p, fs.p_jump_u, fs.p_jump_v, dt, dx=grid.dx, dy=grid.dy, rho_eps=rho_eps, gx=gx,
-            gy=gy)
-        rho_u = bc_mod.apply_neumann_scalar(rho_u)
-        rho_v = bc_mod.apply_neumann_scalar(rho_v)
-        U, V = bc_mod.apply_velocity_bcs(U, V, grid, cfg.bcs, fs.t)
-        if cfg.outflow_correction:
-            _, _, mass_err = mom.inflow_outflow(U, rho_u)
-            U = mom.correct_outflow(U, rho_u, mass_err)
-
-        div = stencil.divergence(U, V, grid.dx, grid.dy)
-        if tangent:
-            # the tangential pull replaces the jump, which stays as it is
-            pj_u, pj_v = fs.p_jump_u, fs.p_jump_v
-            div = fields.add_interior(div, tangent_rhs)
-        else:
-            # capillary forcing: the pressure-jump increment folded into the RHS
-            pj_u, pj_v = mom.calc_pressure_jump(vf_old, curv, iface_len, cfg.sigma, grid.dx, grid.dy)
-            dpj_u = pj_u - fs.p_jump_u
-            dpj_v = pj_v - fs.p_jump_v
-            div = fields.add_interior(div, dt * (
-                (dpj_u[2:-1, 1:-1] / rho_u[2:-1, 1:-1] - dpj_u[1:-2, 1:-1] / rho_u[1:-2, 1:-1]) / grid.dx
-                + (dpj_v[1:-1, 2:-1] / rho_v[1:-1, 2:-1] - dpj_v[1:-1, 1:-2] / rho_v[1:-1, 1:-2]) / grid.dy
-            ))
-        if source is not None:
-            div = fields.add_interior(div, -source)
+        with profiling.annotate(RHS_RANGE):
+            div = stencil.divergence(U, V, grid.dx, grid.dy)
+            if tangent:
+                # the tangential pull replaces the jump, which stays as it is
+                pj_u, pj_v = fs.p_jump_u, fs.p_jump_v
+                div = fields.add_interior(div, tangent_rhs)
+            else:
+                # capillary forcing: the pressure-jump increment folded into the RHS
+                pj_u, pj_v = mom.calc_pressure_jump(vf_old, curv, iface_len, cfg.sigma, grid.dx,
+                                                    grid.dy)
+                dpj_u = pj_u - fs.p_jump_u
+                dpj_v = pj_v - fs.p_jump_v
+                div = fields.add_interior(div, dt * (
+                    (dpj_u[2:-1, 1:-1] / rho_u[2:-1, 1:-1] - dpj_u[1:-2, 1:-1] / rho_u[1:-2, 1:-1]) / grid.dx
+                    + (dpj_v[1:-1, 2:-1] / rho_v[1:-1, 2:-1] - dpj_v[1:-1, 1:-2] / rho_v[1:-1, 1:-2]) / grid.dy
+                ))
+            if source is not None:
+                div = fields.add_interior(div, -source)
         fs = dataclasses.replace(fs, rho_u=rho_u, rho_v=rho_v, p_jump_u=pj_u, p_jump_v=pj_v)
 
         tol = cfg.pressure_tol
         if cfg.pressure_tol_intermediate is not None and k != cfg.num_subiter - 1:
             tol = cfg.pressure_tol_intermediate
-        with record_function(PRESSURE_RANGE):
+        with profiling.annotate(PRESSURE_RANGE):
             if per_step and k == 0:
                 levels = (incomp.build_step_levels(rho_u, rho_v, grid, cfg) if mesh is None else
                           incomp.build_step_levels_sharded(rho_u, rho_v, grid, cfg, mesh))
             delta_p, rel, iters = incomp.pressure_solve(
                 fs, div, dt, grid, cfg, x0=dp_prev if cfg.pressure_warm_start else None,
                 levels=levels if per_step else None, tol=tol, mesh=mesh)
-        p = fs.p + delta_p
-        U, V = incomp.project_velocity(U, V, delta_p, rho_u, rho_v, dt, grid.dx, grid.dy)
-        fs = dataclasses.replace(fs, U=U, V=V, p=p, p_res=rel, p_iter=fs.p_iter + iters)
+        with profiling.annotate(PROJECTION_RANGE):
+            p = fs.p + delta_p
+            U, V = incomp.project_velocity(U, V, delta_p, rho_u, rho_v, dt, grid.dx, grid.dy)
+            fs = dataclasses.replace(fs, U=U, V=V, p=p, p_res=rel, p_iter=fs.p_iter + iters)
         return fs, delta_p, levels
 
     def step(state: TwoPhaseState, t_end: float) -> TwoPhaseState:
@@ -258,18 +265,18 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
         if fs.U.dtype != dtype or fs.U.device != device:
             raise ValueError(f"step built for {dtype} on {device}, state is "
                              f"{fs.U.dtype} on {fs.U.device}")
-        dt = mom.adjust_dt(fs.U, fs.V, fs.rho_u, fs.rho_v, fs.visc, grid.dx, grid.dy,
-                           cfg.rho_gas, cfg.rho_liquid, cfg.sigma, cfg.cfl_max, cfg.dt_max)
-        if gy != 0.0:
-            dt = torch.clamp_max(dt, cfg.cfl_max * math.sqrt(grid.dy / abs(gy)))
-        if gx != 0.0:
-            dt = torch.clamp_max(dt, cfg.cfl_max * math.sqrt(grid.dx / abs(gx)))
-        dt = clamp_dt_to_end(dt, fs.t, t_end)
-
-        # rotation: velocity now, density after remixing from vf_old
-        fs = dataclasses.replace(fs, U_old=fs.U, V_old=fs.V)
+        with profiling.annotate(DT_RANGE):
+            dt = mom.adjust_dt(fs.U, fs.V, fs.rho_u, fs.rho_v, fs.visc, grid.dx, grid.dy,
+                               cfg.rho_gas, cfg.rho_liquid, cfg.sigma, cfg.cfl_max, cfg.dt_max)
+            if gy != 0.0:
+                dt = torch.clamp_max(dt, cfg.cfl_max * math.sqrt(grid.dy / abs(gy)))
+            if gx != 0.0:
+                dt = torch.clamp_max(dt, cfg.cfl_max * math.sqrt(grid.dx / abs(gx)))
+            dt = clamp_dt_to_end(dt, fs.t, t_end)
+            # rotation: velocity now, density after remixing from vf_old
+            fs = dataclasses.replace(fs, U_old=fs.U, V_old=fs.V)
         vf_old = state.vf
-        with record_function(VOF_RANGE):
+        with profiling.annotate(VOF_RANGE):
             rec = plic.elvira(vf_old, grid.dx, grid.dy)
             rho_u, rho_v = mom.mix_rho_staggered(vf_old, cfg.rho_gas, cfg.rho_liquid)
             fs = dataclasses.replace(fs, rho_u=rho_u, rho_v=rho_v, rho_u_old=rho_u,
@@ -375,7 +382,7 @@ def make_kinematic_step(grid: Grid, cfg: SolverConfig, velocity: Callable, dtype
         dt = clamp_dt_to_end(dt, fs.t, t_end)
 
         vf_old = state.vf
-        with record_function(VOF_RANGE):
+        with profiling.annotate(VOF_RANGE):
             rec = plic.elvira(vf_old, grid.dx, grid.dy)
             vf, vol_err = adv.advect(vf_old, rec, U, V, stencil.interp_u_center(U),
                                      stencil.interp_v_center(V), grid, dt,
