@@ -296,6 +296,9 @@ REPLACES = {
                        "fluidsolver_tpu/ops/pallas_momentum.py:247"),
     "rb_sweep": ("fluidsolver_tpu_torch/csrc/rb_sweep.cu",
                  "fluidsolver_tpu/poisson/pallas_smoother.py:54"),
+    # no TPU kernel: the JAX package's jnp RHS, which XLA fuses on the TPU
+    "fused_rhs": ("fluidsolver_tpu_torch/csrc/rhs.cu",
+                  "none: fluidsolver_tpu/solvers/twophase.py:196-206 (jnp, fused by XLA)"),
 }
 # the kernels of the reference's fused composition (its FS_PALLAS_CG and
 # FS_PALLAS_MOMENTUM), ported in one slice
@@ -310,7 +313,8 @@ MG_STEP = tuple(k for k in REPLACES if k not in BOXMG)
 TRACE_NAMES = {k: (k + "_kernel", k + "_bf16_kernel") for k in REPLACES}
 # kernels redesigned as one launch per wrapper call (the profiler must see
 # one device kernel per call on the bench step)
-ONE_LAUNCH = ("step_ab", "step_c", "step_init", "tail_setup", "fused_rap", "elvira", "curvature", "overlap")
+ONE_LAUNCH = ("step_ab", "step_c", "step_init", "tail_setup", "fused_rap", "elvira", "curvature", "overlap",
+              "fused_rhs")
 F32_RTOL = 1e-5
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and
 # non-tensor-core FLOP/s by dtype
@@ -1883,6 +1887,80 @@ def fused_kernel_phase(device, errors: Errors) -> dict:
     return times
 
 
+def rhs_inputs(shape, seed: int, dtype, device) -> list:
+    """The nine field inputs of fused_rhs for a centre shape (n, m): a drop
+    of radius 0.3 (in units of the box) whose fraction ramps over three
+    cells, curvatures from a normal distribution and interface lengths in
+    [0, 1.5] on its mixed cells (0 elsewhere, so both sides of the face
+    curvature's test occur), normal velocities and old jumps, face
+    densities 1 or 1000 at random."""
+    n, m = shape
+    rng = np.random.default_rng(seed)
+    u, v = (n + 1, m), (n, m + 1)
+    x = (np.arange(n) + 0.5)[:, None] / n
+    y = (np.arange(m) + 0.5)[None, :] / m
+    r = np.sqrt((x - 0.45) ** 2 + ((y - 0.55) * m / n) ** 2)
+    vf = np.clip((0.3 - r) * n / 3.0 + 0.5, 0.0, 1.0)
+    mixed = (vf > 0.0) & (vf < 1.0)
+    curv = np.where(mixed, rng.normal(size=(n, m)), 0.0)
+    length = np.where(mixed, rng.uniform(0.0, 1.5, (n, m)), 0.0)
+
+    def rho(s):
+        return np.where(rng.random(s) > 0.5, 1000.0, 1.0)
+
+    arrays = [rng.normal(size=u), rng.normal(size=v), vf, curv, length, rho(u), rho(v), rng.normal(size=u),
+              rng.normal(size=v)]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+def rhs_kernel_phase(device, errors: Errors) -> dict:
+    """Kernel 13, fused_rhs, against its twin: torch.equal on every output
+    at the channel's 10242 x 2050 in f64 and at 1026^2 and 1023 x 771 in
+    f32 and f64, each called twice; bf16 refused. Times the kernel, the
+    twin and the bound (12 planes once; about 60 flops a cell) at the
+    channel's shape and at 1026^2 f32. Returns name -> (kernel ms, twin ms,
+    bound ms, bound by) at 1026^2 f32, the kernel table's shape."""
+    from fluidsolver_tpu_torch.ops import cuda_rhs
+
+    times = {}
+    for dtype, shape, main in ((torch.float64, (10242, 2050), True), (torch.float32, (1026, 1026), True),
+                               (torch.float64, (1026, 1026), False), (torch.float32, (1023, 771), False),
+                               (torch.float64, (1023, 771), False)):
+        tag = f"{str(dtype)[6:]} {shape[0]}x{shape[1]}"
+        ins = rhs_inputs(shape, 17, dtype, device)
+        dt = torch.tensor(1.3e-4, dtype=dtype, device=device)
+        kw = dict(sigma=1.0 / 200, dx=2.2 / (shape[0] - 2), dy=0.41 / (shape[1] - 2))
+        got = cuda_rhs.fused_rhs_cuda(*ins, dt, **kw)
+        want = cuda_rhs.fused_rhs_twin(*ins, dt, **kw)
+        again = cuda_rhs.fused_rhs_cuda(*ins, dt, **kw)
+        torch.cuda.synchronize()
+        errors.compare("fused_rhs", got, want, dtype, 0.0, 0.0, main, tag)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)), f"fused_rhs {tag}: not bitwise its twin")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)), f"fused_rhs {tag}: two calls differ")
+        has = [int((w != 0).sum()) for w in want]
+        require(min(has) > 0, f"fused_rhs {tag}: an output is all zero")
+        log(f"  {tag}: fused_rhs bitwise its twin (div, p_jump_u, p_jump_v), non-zero {has}")
+        if main:
+            n = shape[0] * shape[1]
+            bnd = bound(12 * n * itemsize(dtype), 60 * n, dtype)
+            t = (time_ms(lambda: cuda_rhs.fused_rhs_cuda(*ins, dt, **kw), 50, kernel=True),
+                 time_ms(lambda: cuda_rhs.fused_rhs_twin(*ins, dt, **kw), 20), *bnd)
+            log(f"  {tag}: fused_rhs {t[0]:.4f} ms, twin {t[1]:.4f} ms, bound {t[2]:.4f} ms ({t[3]}): "
+                f"{100 * t[2] / t[0]:.1f}% of the bound")
+            if dtype == torch.float32:
+                times["fused_rhs"] = t
+        del got, want, again, ins
+    bf16 = [t.to(torch.bfloat16) for t in rhs_inputs((66, 34), 17, torch.float32, device)]
+    try:
+        cuda_rhs.fused_rhs_cuda(*bf16, torch.tensor(1e-4, dtype=torch.bfloat16, device=device), sigma=0.005,
+                                dx=0.01, dy=0.01)
+    except RuntimeError as exc:
+        log(f"  bf16 refused: {exc}")
+    else:
+        require(False, "fused_rhs took bf16 operands")
+    return times
+
+
 def step_ab_bound(inp: dict) -> tuple:
     """step_ab's bound: 5 planes and x, r, p in, x' and r' out; 18 flops per
     point (matvec 9, 3 dots 5, 2 axpys 4)."""
@@ -2487,7 +2565,8 @@ def profile_bench(step, state, n: int, kernels) -> tuple:
         f"idle share {1 - busy / wall_us:.3f}")
     log(f"    fused PCG kernels {sum(ours[k][0] for k in FUSED[:3]) / 1e3:.4f} ms "
         f"({sum(ours[k][1] for k in FUSED[:3])} launches); fused momentum "
-        f"{ours['fused_momentum'][0] / 1e3:.4f} ms ({ours['fused_momentum'][1]} launches)")
+        f"{ours['fused_momentum'][0] / 1e3:.4f} ms ({ours['fused_momentum'][1]} launches); fused RHS "
+        f"{ours['fused_rhs'][0] / 1e3:.4f} ms ({ours['fused_rhs'][1]} launches)")
     log(f"    VOF kernels {vof_kernels / 1e3:.4f} ms; rest of the VOF stage "
         f"{(vof_total - vof_kernels) / 1e3:.4f} ms; pressure solves (with the hierarchy) "
         f"{pressure_total / 1e3:.4f} ms (of it the PCG loop's guard selects {guards / 1e3:.4f}); other work "
@@ -2522,16 +2601,17 @@ def bench_phase(device, g, cfg, vf0) -> dict:
                 "fused_rap": n_above * n_steps, "tail_setup": n_steps,
                 "tail_cycle": cycles, "fused_smooth": 2 * n_above * cycles,
                 # one step_ab per PCG iteration, one step_init and one
-                # init-form step_c per solve, one fused_momentum per subiteration
+                # init-form step_c per solve, one fused_momentum and one
+                # fused_rhs per subiteration
                 "step_ab": sum(iters), "step_c": sum(iters) + solves, "step_init": solves,
-                "fused_momentum": solves, "rb_sweep": 0}
+                "fused_momentum": solves, "fused_rhs": solves, "rb_sweep": 0}
     log(f"  expected launches: {expected}; Σp_iter {sum(iters)} (recorded {RECORDED_P_ITER['boxmg']})")
     require(sum(iters) == RECORDED_P_ITER["boxmg"], f"Σp_iter {sum(iters)} differs from the recorded "
             f"{RECORDED_P_ITER['boxmg']}: the f32 BoxMG path changed")
     require(all(launches.get(k, 0) == v for k, v in expected.items()),
             "the launch counts differ from one VOF kernel each, one hierarchy per step, one V-cycle, "
-            "step_ab and step_c per PCG iteration, and one step_init, step_c, V-cycle and "
-            "fused_momentum per solve")
+            "step_ab and step_c per PCG iteration, and one step_init, step_c, V-cycle, "
+            "fused_momentum and fused_rhs per solve")
     profile_bench(step, state, 3, BOXMG_STEP)
     return launches
 
@@ -2561,7 +2641,7 @@ def mg_bench_phase(device, g, cfg, vf0) -> dict:
     cycles = sum(iters) + n_solves
     expected = {"rb_sweep": cycles * sweeps, "elvira": n_steps, "curvature": n_steps, "overlap": n_steps,
                 "step_ab": sum(iters), "step_c": cycles, "step_init": n_solves, "fused_momentum": n_solves,
-                **{k: 0 for k in BOXMG}}
+                "fused_rhs": n_solves, **{k: 0 for k in BOXMG}}
     log(f"  expected launches: {expected}; Σp_iter {sum(iters)} (recorded {RECORDED_P_ITER['mg']})")
     require(sum(iters) == RECORDED_P_ITER["mg"], f"Σp_iter {sum(iters)} differs from the recorded "
             f"{RECORDED_P_ITER['mg']}: the f32 \"mg\" path changed")
@@ -2849,7 +2929,7 @@ def expected_bench_launches(n_steps: int, iters: list, n_above: int, n_subiter: 
     return {"elvira": n_steps, "curvature": n_steps, "overlap": n_steps, "overlap_n0_4": 0,
             "fused_rap": n_above * n_steps, "tail_setup": n_steps, "tail_cycle": cycles,
             "fused_smooth": 2 * n_above * cycles, "step_ab": sum(iters), "step_c": sum(iters) + solves,
-            "step_init": solves, "fused_momentum": solves, "rb_sweep": 0}
+            "step_init": solves, "fused_momentum": solves, "fused_rhs": solves, "rb_sweep": 0}
 
 
 def record_advections(device, g, cfg, vf0, dtype, n_steps: int) -> list:
@@ -2927,6 +3007,8 @@ def bench_options_phase(device, g, cfg, vf0) -> int:
         if label == "no_correction":
             expected["overlap_n0_4"] = n_steps
             quad = launches.get("overlap_n0_4", 0)
+        if label == "tangent_force":
+            expected["fused_rhs"] = 0
         require(all(launches.get(k, 0) == v for k, v in expected.items()),
                 f"{label}: the launch counts differ from {expected}")
     dense_oracle_check(device, g, cfg, vf0)
@@ -2986,8 +3068,9 @@ def expanding_bubble_phase(device) -> None:
     require(gas1 - gas0 > 0.3 * expected, "the bubble grew by less than 0.3 of 2 pi r m_dot t")
     require(float(vf.min()) > -1e-5 and float(vf.max()) < 1.0 + 1e-5, "vf left [-1e-5, 1 + 1e-5]")
     require(launches.get("elvira") == n_steps and launches.get("overlap") == n_steps
-            and launches.get("curvature") == n_steps and launches.get("fused_momentum") == n_steps * 5,
-            "one elvira, overlap and curvature a step and one fused_momentum a subiteration")
+            and launches.get("curvature") == n_steps and launches.get("fused_momentum") == n_steps * 5
+            and launches.get("fused_rhs") == n_steps * 5,
+            "one elvira, overlap and curvature a step and one fused_momentum and fused_rhs a subiteration")
 
 
 # ---- phase 11 ------------------------------------------------------------------
@@ -3601,7 +3684,7 @@ def bf16_bench_phase(device, g, cfg, vf0) -> dict:
         require(syncs == want_syncs, f"host syncs per step {syncs}, expected {want_syncs}")
         expected = {"elvira": n_steps, "curvature": n_steps, "overlap": n_steps, "step_ab": sum(iters),
                     "step_c": cycles, "step_init": n_solves, "fused_momentum": n_solves,
-                    "tail_cycle": 0, "tail_setup": 0}
+                    "fused_rhs": n_solves, "tail_cycle": 0, "tail_setup": 0}
         if solver == "boxmg":
             expected.update(fused_rap=n_smoothed * n_steps, fused_smooth=2 * n_smoothed * cycles,
                             fused_smooth_bf16=2 * n_smoothed * cycles, rb_sweep=0)
@@ -4460,8 +4543,9 @@ def main(argv=None) -> int:
         overlap_limits_phase(device, errors, vf_bench, g_bench)
         overlap_report_phase(device, vf_bench, g_bench, cfg_bench, parent)
         phase = "3c fused kernels vs twins"
-        log("phase 3c: the fused PCG iteration and momentum kernels against their twins on the card")
+        log("phase 3c: the fused PCG iteration, momentum and RHS kernels against their twins on the card")
         times.update(fused_kernel_phase(device, errors))
+        times.update(rhs_kernel_phase(device, errors))
         cg_limits_phase(device, errors)
         if parent is not None:
             cg_turns(device, parent_lib(parent), _kernels.lib())

@@ -1,8 +1,8 @@
 """Build, load and bind the CUDA kernels of ``fluidsolver_tpu_torch/csrc``.
 
 The sources (the BoxMG kernels, the geometric multigrid's red-black
-sweep, the fused PCG iteration, the fused momentum stage and the VOF
-kernels) are compiled with
+sweep, the fused PCG iteration, the fused momentum stage, the two-phase
+pressure right-hand side and the VOF kernels) are compiled with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
 at first use, into
 ``fluidsolver_tpu_torch/_build/`` (named by a hash of the sources and the
@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_rap.cu", "fused_smooth.cu", "tail.cu", "cg.cu", "momentum.cu", "elvira.cu",
-           "curvature.cu", "overlap.cu", "rb_sweep.cu")
+           "curvature.cu", "overlap.cu", "rb_sweep.cu", "rhs.cu")
 HEADERS = ("boxmg_device.cuh", "vof_device.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -66,6 +66,8 @@ _SIGNATURES = {
     "fs_step_init": (_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     # dtype, in (12), dt, out (4), Nc, M, dx, dy, rho_eps, gx, gy, stream
     "fs_fused_momentum": (_I, _P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _P),
+    # dtype, in (9), dt, out (3), Nc, M, dx, dy, sigma, stream
+    "fs_fused_rhs": (_I, _P, _P, _P, _I, _I, _D, _D, _D, _P),
     # dtype, vf, N, M, dx, dy, lo, hi, out (3 planes), valid, stream
     "fs_elvira": (_I, _P, _I, _I, _D, _D, _D, _D, _P, _P, _P),
     # fs_elvira's arguments (the fills on every cell, no search: a

@@ -488,29 +488,33 @@ def v_cycle(levels: list, b: torch.Tensor, n_pre: int = 1, n_post: int = 1) -> t
     """One symmetric V(n_pre, n_post) cycle from a zero initial guess. Each
     smoothing phase runs inside the profiler range of its form and level
     shape (``SMOOTH_RESTRICT``, ``SMOOTH_CORRECT``, ``SMOOTH_COARSE``)."""
+    return _cycle(levels, 0, b, n_pre, n_post)
+
+
+def _cycle(levels: list, lvl: int, b_l: torch.Tensor, n_pre: int, n_post: int) -> torch.Tensor:
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle holding ``levels``, which kept each
+    # solve's hierarchy alive until the cyclic garbage collector ran
     from fluidsolver_tpu_torch.poisson import cuda_tail, cuda_vcycle
 
-    def cycle(lvl, b_l):
-        level = levels[lvl]
-        if level.tail is not None:
-            return cuda_tail.tail_cycle(level.tail, b_l, n_pre, n_post)
-        if level.coarse_inv is not None:
-            # exact coarse solve: one product with the f32 inverse
-            inv = level.coarse_inv
-            return (inv @ b_l.reshape(-1).to(inv.dtype)).reshape(b_l.shape).to(b_l.dtype)
-        if level.tr is None:
-            # coarsest level without a tail: symmetric sweep pairs
-            x = None
-            for _ in range(COARSE_SWEEPS // 2):
-                with profiling.annotate(SMOOTH_COARSE, *b_l.shape):
-                    x = cuda_vcycle.fused_smooth(level.op, b_l, x0=x, colors=(True, False, False, True))
-            return x
-        with profiling.annotate(SMOOTH_RESTRICT, *b_l.shape):
-            x, bc = cuda_vcycle.fused_smooth(level.op, b_l, colors=(True, False) * n_pre,
-                                             tr=level.tr, restrict=True)
-        ec = cycle(lvl + 1, bc)
-        with profiling.annotate(SMOOTH_CORRECT, *b_l.shape):
-            return cuda_vcycle.fused_smooth(level.op, b_l, x0=x, colors=(False, True) * n_post,
-                                            tr=level.tr, ec=ec)
-
-    return cycle(0, b)
+    level = levels[lvl]
+    if level.tail is not None:
+        return cuda_tail.tail_cycle(level.tail, b_l, n_pre, n_post)
+    if level.coarse_inv is not None:
+        # exact coarse solve: one product with the f32 inverse
+        inv = level.coarse_inv
+        return (inv @ b_l.reshape(-1).to(inv.dtype)).reshape(b_l.shape).to(b_l.dtype)
+    if level.tr is None:
+        # coarsest level without a tail: symmetric sweep pairs
+        x = None
+        for _ in range(COARSE_SWEEPS // 2):
+            with profiling.annotate(SMOOTH_COARSE, *b_l.shape):
+                x = cuda_vcycle.fused_smooth(level.op, b_l, x0=x, colors=(True, False, False, True))
+        return x
+    with profiling.annotate(SMOOTH_RESTRICT, *b_l.shape):
+        x, bc = cuda_vcycle.fused_smooth(level.op, b_l, colors=(True, False) * n_pre,
+                                         tr=level.tr, restrict=True)
+    ec = _cycle(levels, lvl + 1, bc, n_pre, n_post)
+    with profiling.annotate(SMOOTH_CORRECT, *b_l.shape):
+        return cuda_vcycle.fused_smooth(level.op, b_l, x0=x, colors=(False, True) * n_post,
+                                        tr=level.tr, ec=ec)

@@ -39,7 +39,8 @@ on global fields on the mesh's first device, where the state lives.
 The step runs the reference's fused composition (its ``FS_PALLAS_CG`` and
 ``FS_PALLAS_MOMENTUM``): the fused PCG iteration (kernels 5-7, in
 ``poisson/cg.py``) and the fused momentum stage (kernel 8,
-``ops/cuda_momentum.py``).
+``ops/cuda_momentum.py``); under "pressure_jump" the RHS stage is one
+kernel too (kernel 13, ``ops/cuda_rhs.py``).
 
 ``make_kinematic_step`` is the VOF stage alone under a prescribed
 velocity (ELVIRA, advection, interface length; no momentum, no pressure).
@@ -67,7 +68,7 @@ from fluidsolver_tpu_torch.constants import vf_cutoffs
 from fluidsolver_tpu_torch.core import bc as bc_mod
 from fluidsolver_tpu_torch.core import fields, sync
 from fluidsolver_tpu_torch.core.grid import Grid
-from fluidsolver_tpu_torch.ops import cuda_momentum
+from fluidsolver_tpu_torch.ops import cuda_momentum, cuda_rhs
 from fluidsolver_tpu_torch.ops import momentum as mom
 from fluidsolver_tpu_torch.ops import stencil
 from fluidsolver_tpu_torch.solvers import incomp
@@ -225,21 +226,16 @@ def make_step(grid: Grid, cfg: SolverConfig, dtype: torch.dtype, device, mesh=No
                 U = mom.correct_outflow(U, rho_u, mass_err)
 
         with profiling.annotate(RHS_RANGE):
-            div = stencil.divergence(U, V, grid.dx, grid.dy)
             if tangent:
                 # the tangential pull replaces the jump, which stays as it is
                 pj_u, pj_v = fs.p_jump_u, fs.p_jump_v
-                div = fields.add_interior(div, tangent_rhs)
+                div = fields.add_interior(stencil.divergence(U, V, grid.dx, grid.dy), tangent_rhs)
             else:
-                # capillary forcing: the pressure-jump increment folded into the RHS
-                pj_u, pj_v = mom.calc_pressure_jump(vf_old, curv, iface_len, cfg.sigma, grid.dx,
-                                                    grid.dy)
-                dpj_u = pj_u - fs.p_jump_u
-                dpj_v = pj_v - fs.p_jump_v
-                div = fields.add_interior(div, dt * (
-                    (dpj_u[2:-1, 1:-1] / rho_u[2:-1, 1:-1] - dpj_u[1:-2, 1:-1] / rho_u[1:-2, 1:-1]) / grid.dx
-                    + (dpj_v[1:-1, 2:-1] / rho_v[1:-1, 2:-1] - dpj_v[1:-1, 1:-2] / rho_v[1:-1, 1:-2]) / grid.dy
-                ))
+                # capillary forcing: the pressure-jump increment folded into
+                # the RHS, in one stage with the divergence
+                div, pj_u, pj_v = cuda_rhs.fused_rhs(
+                    U, V, vf_old, curv, iface_len, rho_u, rho_v, fs.p_jump_u, fs.p_jump_v, dt,
+                    sigma=cfg.sigma, dx=grid.dx, dy=grid.dy)
             if source is not None:
                 div = fields.add_interior(div, -source)
         fs = dataclasses.replace(fs, rho_u=rho_u, rho_v=rho_v, p_jump_u=pj_u, p_jump_v=pj_v)

@@ -1,6 +1,6 @@
 """The port's fused composition (the JAX package's ``FS_PALLAS_CG=1``,
 ``FS_PALLAS_MOMENTUM=1``) against the JAX package, in f64 on the CPU, where
-kernels 5-8 run their plain PyTorch twins.
+kernels 5-8 and 13 run their plain PyTorch twins.
 
 The twins of ``step_ab``, ``step_c`` and ``step_init`` are held to the
 Pallas kernels in interpret mode at the tolerances the JAX package holds
@@ -9,6 +9,9 @@ tests/test_padded_carry.py): the two reduce in different orders, so the
 scalars agree to near-ulp relative tolerances. ``fused_momentum``'s twin is
 held to the Pallas kernel at atol 1e-11 (densities) and 1e-12 (velocities),
 as tests/test_pallas_momentum.py holds the kernel to the unfused sequence.
+``fused_rhs``'s twin (kernel 13, no Pallas kernel) is held bitwise to the
+subiteration's unfused sequence and to the JAX package's ``jnp`` RHS at
+1e-14.
 The port's solve and steps are held to the JAX package's plain ones at the
 bounds of test_pallas_cg.py and test_torch_twophase.py, and make exactly
 the kernel calls that chip_smoke.py counts on the card.
@@ -17,6 +20,7 @@ the kernel calls that chip_smoke.py counts on the card.
 import collections
 import dataclasses
 import functools
+import gc
 import inspect
 
 import jax
@@ -26,19 +30,26 @@ import pytest
 import torch
 
 from fluidsolver_tpu.cases import get_case as jget_case
+from fluidsolver_tpu.core.fields import add_interior as jadd_interior
 from fluidsolver_tpu.core.grid import make_grid as jmake_grid
+from fluidsolver_tpu.ops import momentum as jmom
+from fluidsolver_tpu.ops import stencil as jstencil
 from fluidsolver_tpu.ops.pallas_momentum import fused_momentum as jfused_momentum
 from fluidsolver_tpu.poisson import cg as jcg
 from fluidsolver_tpu.poisson import linsys as jlin
 from fluidsolver_tpu.poisson import pallas_cg as pc
 from fluidsolver_tpu_torch.cases import get_case
-from fluidsolver_tpu_torch.core import bc
+from fluidsolver_tpu_torch.core import bc, fields
 from fluidsolver_tpu_torch.core.grid import make_grid
-from fluidsolver_tpu_torch.ops import cuda_momentum
-from fluidsolver_tpu_torch.poisson import cg, cuda_cg
+from fluidsolver_tpu_torch.ops import cuda_momentum, cuda_rhs, stencil
+from fluidsolver_tpu_torch.ops import momentum as mom
+from fluidsolver_tpu_torch.poisson import _kernels, cg, cuda_cg
 from fluidsolver_tpu_torch.poisson.linsys import StencilOp
 from fluidsolver_tpu_torch.solvers import twophase
 from fluidsolver_tpu_torch.solvers.config import config_from_jax
+from fluidsolver_tpu_torch.vof import plic
+from fluidsolver_tpu_torch.vof.curvature import curvature_quad_volume_matching
+from fluidsolver_tpu_torch.vof.init import liquid_fraction_from_indicator
 from tests.golden_cases import two_phase_drop
 
 torch.set_num_threads(1)
@@ -190,6 +201,102 @@ def test_fused_momentum_twin_matches_pallas(nx, ny, gravity):
     assert torch.equal(got[2][-1], T(args[0])[-1]) and torch.equal(got[0][0], T(args[6])[0])
 
 
+# ---- kernel 13: fused_rhs --------------------------------------------------------
+def rhs_inputs(nx, ny, dtype):
+    """The fused RHS's inputs on an nx x ny box: a drop's vf with its
+    ELVIRA curvature and interface lengths, seeded velocities, face
+    densities between the two phases' and old jumps."""
+    g = make_grid(0.0, 1.0, nx, 0.0, 1.3, ny)
+    vf = liquid_fraction_from_indicator(lambda x, y: (x - 0.45) ** 2 + (y - 0.6) ** 2 < 0.3 ** 2, g, n=4)
+    vf = torch.as_tensor(vf, dtype=dtype)
+    rec = plic.elvira(vf, g.dx, g.dy)
+    curv = curvature_quad_volume_matching(vf, rec, g)
+    length = plic.interface_length(rec, g.dx, g.dy)
+    assert int(rec.valid.sum()) > 8 and float(curv.abs().max()) > 0.0
+    rng = np.random.default_rng(nx * ny)
+    u, v = g.shape_u, g.shape_v
+    U, V, pj_u_old, pj_v_old = (torch.as_tensor(rng.normal(size=s), dtype=dtype) for s in (u, v, u, v))
+    rho_u, rho_v = (torch.as_tensor(rng.uniform(1.0, 1000.0, s), dtype=dtype) for s in (u, v))
+    return g, (U, V, vf, curv, length, rho_u, rho_v, pj_u_old, pj_v_old,
+               torch.tensor(1.7e-3, dtype=dtype))
+
+
+RHS_BOXES = [(18, 10), (34, 66)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,ny", RHS_BOXES)
+def test_fused_rhs_twin_is_the_unfused_sequence(nx, ny, dtype):
+    """The twin is the subiteration's RHS stage as it was written inline
+    (divergence, jump, increment added on the interior), bitwise; the
+    jumps' ghost rings are zero."""
+    g, args = rhs_inputs(nx, ny, dtype)
+    U, V, vf, curv, length, rho_u, rho_v, pj_u_old, pj_v_old, dt = args
+    sigma = 1.0 / 200
+    div = stencil.divergence(U, V, g.dx, g.dy)
+    pj_u, pj_v = mom.calc_pressure_jump(vf, curv, length, sigma, g.dx, g.dy)
+    dpj_u = pj_u - pj_u_old
+    dpj_v = pj_v - pj_v_old
+    div = fields.add_interior(div, dt * (
+        (dpj_u[2:-1, 1:-1] / rho_u[2:-1, 1:-1] - dpj_u[1:-2, 1:-1] / rho_u[1:-2, 1:-1]) / g.dx
+        + (dpj_v[1:-1, 2:-1] / rho_v[1:-1, 2:-1] - dpj_v[1:-1, 1:-2] / rho_v[1:-1, 1:-2]) / g.dy
+    ))
+    got = cuda_rhs.fused_rhs(*args, sigma=sigma, dx=g.dx, dy=g.dy)
+    for k, (a, b) in enumerate(zip(got, (div, pj_u, pj_v))):
+        assert a.dtype == dtype and a.shape == b.shape and torch.equal(a, b), k
+    for pj in got[1:]:
+        ring = torch.ones_like(pj, dtype=torch.bool)
+        ring[1:-1, 1:-1] = False
+        assert float(pj[ring].abs().max()) == 0.0 and float(pj.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("nx,ny", RHS_BOXES)
+def test_fused_rhs_twin_matches_jax(nx, ny):
+    """The twin against the JAX package's pressure_jump RHS
+    (solvers/twophase.py: divergence, calc_pressure_jump, the increment
+    over the face densities) in f64, to 1e-14 of each output's largest
+    magnitude."""
+    g, args = rhs_inputs(nx, ny, torch.float64)
+    sigma = 1.0 / 200
+    got = cuda_rhs.fused_rhs(*args, sigma=sigma, dx=g.dx, dy=g.dy)
+    U, V, vf, curv, length, rho_u, rho_v, pj_u_old, pj_v_old, dt = (jnp.asarray(a.numpy()) for a in args)
+    pj_u, pj_v = jmom.calc_pressure_jump(vf, curv, length, sigma, g.dx, g.dy, pj_u_old, pj_v_old)
+    dpj_u = pj_u - pj_u_old
+    dpj_v = pj_v - pj_v_old
+    div = jadd_interior(jstencil.divergence(U, V, g.dx, g.dy), dt * (
+        (dpj_u[2:-1, 1:-1] / rho_u[2:-1, 1:-1] - dpj_u[1:-2, 1:-1] / rho_u[1:-2, 1:-1]) / g.dx
+        + (dpj_v[1:-1, 2:-1] / rho_v[1:-1, 2:-1] - dpj_v[1:-1, 1:-2] / rho_v[1:-1, 1:-2]) / g.dy
+    ))
+    for name, a, b in zip(("div", "p_jump_u", "p_jump_v"), got, (div, pj_u, pj_v)):
+        assert a.shape == b.shape and max_rel(a, b) <= 1e-14, (name, max_rel(a, b))
+
+
+def test_fused_rhs_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
+    """fused_rhs_cuda raises on a field of the wrong shape before any
+    launch, and on bf16, for which the entry point returns
+    cudaErrorInvalidValue (1), without counting a launch."""
+    g, args = rhs_inputs(18, 10, torch.float32)
+    bad = list(args)
+    bad[1] = bad[1][:, :-1].contiguous()
+    with pytest.raises(ValueError, match="fused_rhs takes"):
+        cuda_rhs.fused_rhs_cuda(*bad, sigma=0.005, dx=g.dx, dy=g.dy)
+    codes = []
+
+    class Lib:
+        def fs_fused_rhs(self, dtype, *rest):
+            codes.append(dtype)
+            return 0 if dtype in (0, 1) else 1
+
+    monkeypatch.setattr(_kernels, "lib", Lib)
+    monkeypatch.setattr(_kernels, "stream", lambda device: None)
+    monkeypatch.setattr(_kernels, "launches", collections.Counter())
+    bf16 = [a.to(torch.bfloat16) for a in args]
+    with pytest.raises(RuntimeError, match="fused_rhs launch failed: cudaError 1"):
+        cuda_rhs.fused_rhs_cuda(*bf16, sigma=0.005, dx=g.dx, dy=g.dy)
+    cuda_rhs.fused_rhs_cuda(*args, sigma=0.005, dx=g.dx, dy=g.dy)
+    assert codes == [2, 0] and dict(_kernels.launches) == {"fused_rhs": 1}
+
+
 # ---- the fused PCG solve --------------------------------------------------------
 def drop_operator(n, pin):
     g = jmake_grid(0.0, 1.0, n, 0.0, 1.0, n)
@@ -241,8 +348,8 @@ def test_golden_two_phase_drop_fused(monkeypatch):
     """The golden drop (64^2, 15 steps, tol 1e-10) against the committed f64
     trajectory (test_torch_twophase.py's bound), through kernels 5-8 with
     the counts of chip_smoke.py's bench phase: per solve one step_init, one
-    fused_momentum and one init-form step_c, per PCG iteration one step_ab
-    and one step_c."""
+    fused_momentum, one fused_rhs and one init-form step_c, per PCG
+    iteration one step_ab and one step_c."""
     calls = count_calls(monkeypatch)
     jrun = two_phase_drop(np.float64)
     case = inspect.getclosurevars(jrun).nonlocals
@@ -254,7 +361,8 @@ def test_golden_two_phase_drop_fused(monkeypatch):
     out = twophase.run(state, case["t_end"], grid, cfg, callback=lambda s: iters.append(int(s.flow.p_iter)))
     solves = len(iters) * cfg.num_subiter
     assert len(iters) == 15 and dict(calls) == {"step_init": solves, "fused_momentum": solves,
-                                                "step_ab": sum(iters), "step_c": sum(iters) + solves}
+                                                "fused_rhs": solves, "step_ab": sum(iters),
+                                                "step_c": sum(iters) + solves}
     gold = dict(np.load("tests/goldens/two_phase_drop.npz"))
     assert float(out.flow.t) == pytest.approx(float(gold["t"]), abs=1e-14)
     got = {"U": out.flow.U, "V": out.flow.V, "p": out.flow.p, "vf": out.vf, "curv": out.curv}
@@ -305,17 +413,17 @@ def test_single_phase_fused_cg_against_jax(monkeypatch, name, kwargs):
         for k in ("U", "V", "p"):
             assert max_rel(getattr(state, k), getattr(jstate, k)) <= TOL, k
     assert calls["step_init"] == 3 * tcase.cfg.num_subiter and calls["step_ab"] > 0
-    assert "fused_momentum" not in calls
+    assert "fused_momentum" not in calls and "fused_rhs" not in calls
 
 
 # ---- the kernel calls of a step ------------------------------------------------
 def count_calls(monkeypatch) -> collections.Counter:
-    """Count the calls of kernels 5-8's dispatching wrappers, and check that
-    the step hands them contiguous tensors (the CUDA wrappers raise on
-    others)."""
+    """Count the calls of kernels 5-8 and 13's dispatching wrappers, and
+    check that the step hands them contiguous tensors (the CUDA wrappers
+    raise on others)."""
     calls = collections.Counter()
     for mod, name in ((cuda_cg, "step_ab"), (cuda_cg, "step_c"), (cuda_cg, "step_init"),
-                      (cuda_momentum, "fused_momentum")):
+                      (cuda_momentum, "fused_momentum"), (cuda_rhs, "fused_rhs")):
         def wrapped(*a, _fn=getattr(mod, name), _name=name, **k):
             calls[_name] += 1
             tensors = [t for v in a for t in (
@@ -328,21 +436,47 @@ def count_calls(monkeypatch) -> collections.Counter:
     return calls
 
 
-@pytest.mark.parametrize("refresh", ["solve", "step"])
-def test_step_calls_kernels_5_to_8(monkeypatch, refresh):
+@pytest.mark.parametrize("refresh,surface_tension", [("solve", "pressure_jump"),
+                                                     ("step", "pressure_jump"),
+                                                     ("solve", "tangent_force")])
+def test_step_calls_kernels_5_to_8(monkeypatch, refresh, surface_tension):
     """One two-phase step makes the exact calls that chip_smoke.py requires
     per step on the card: step_init and fused_momentum once per
-    subiteration, step_ab once per PCG iteration, step_c once more per
-    solve; every operand contiguous."""
+    subiteration, and fused_rhs once per subiteration under
+    "pressure_jump" (never under "tangent_force"), step_ab once per PCG
+    iteration, step_c once more per solve; every operand contiguous."""
     calls = count_calls(monkeypatch)
     case = get_case("two_phase_channel", ny=8)
-    case.cfg = dataclasses.replace(case.cfg, pressure_precond_refresh=refresh)
+    case.cfg = dataclasses.replace(case.cfg, pressure_precond_refresh=refresh,
+                                   surface_tension_method=surface_tension)
     state = case.make_state(torch.float64, "cpu")
     state = case.make_step(torch.float64, "cpu")(state, case.t_end)
     n_sub, iters = case.cfg.num_subiter, int(state.flow.p_iter)
     assert iters > 0
-    assert dict(calls) == {"step_init": n_sub, "fused_momentum": n_sub, "step_ab": iters,
-                           "step_c": iters + n_sub}
+    want = {"step_init": n_sub, "fused_momentum": n_sub, "step_ab": iters, "step_c": iters + n_sub}
+    if surface_tension == "pressure_jump":
+        want["fused_rhs"] = n_sub
+    assert dict(calls) == want
+
+
+def test_step_leaves_no_cyclic_garbage():
+    """A two-phase step with the hierarchy rebuilt each solve (BoxMG, f64)
+    leaves nothing for the cyclic garbage collector: each solve's
+    hierarchy is freed when the solve returns, not when the collector
+    next runs (the V-cycle's recursion is no closure that calls itself)."""
+    case = get_case("two_phase_channel", ny=8)
+    assert case.cfg.pressure_solver == "boxmg" and case.cfg.pressure_precond_refresh == "solve"
+    state = case.make_state(torch.float64, "cpu")
+    step = case.make_step(torch.float64, "cpu")
+    state = step(state, case.t_end)
+    gc.collect()
+    gc.disable()
+    try:
+        state = step(state, case.t_end)
+        assert int(state.flow.p_iter) > 0
+        assert gc.collect() == 0
+    finally:
+        gc.enable()
 
 
 # ---- the callable BC's coordinates -------------------------------------------
